@@ -1,0 +1,162 @@
+"""nvcc build and ctypes binding of the port's CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by its own nvcc process (all started
+together) into a shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/<stem>-<hash>.so csrc/<stem>.cu
+
+No PyTorch header is involved, so a build takes seconds to a few minutes.
+The library name carries a hash of the sources and flags, so an edited
+source is rebuilt and a stale library is never loaded. Nothing is built or
+loaded at import; the first launch builds.
+
+Every C entry point takes pointers and the CUDA stream as ``void*`` and ints
+as ``int``, launches on that stream, and returns ``cudaGetLastError()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("field_kernels", "ec_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine "
+                       "with the CUDA toolkit")
+
+
+def library_path(stem: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{stem}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(verbose: bool = False) -> float:
+    """Compile every source whose library is missing, in parallel.
+
+    Returns the seconds spent. Raises with nvcc's output if a build fails.
+    verbose adds -Xptxas -v: ptxas prints each kernel's registers, shared
+    memory and spills.
+    """
+    t0 = time.perf_counter()
+    missing = [s for s in SOURCES if not library_path(s).exists()]
+    if not missing:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = []
+    for stem in missing:
+        out = library_path(stem)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+               "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        procs.append((stem, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for stem, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if log.strip():
+            print(f"[nvcc {stem}]\n{log.rstrip()}", flush=True)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {stem}.cu (exit {proc.returncode})")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("; ".join(errors))
+    return time.perf_counter() - t0
+
+
+@functools.cache
+def library(stem: str) -> ctypes.CDLL:
+    build_all()
+    return ctypes.CDLL(str(library_path(stem)))
+
+
+class Kernel:
+    """One C entry point of a kernel library, with a count of its launches.
+
+    ``launches`` grows by one for each launch the wrapper makes, and at no
+    other place; callers read and reset it to see which kernels ran.
+    """
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes):
+        self.name = name
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, device: torch.device, *args):
+        if self._fn is None:
+            fn = getattr(library(self.source), self.symbol)
+            fn.argtypes = self.argtypes + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            rc = self._fn(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.symbol}: CUDA error {rc} "
+                               f"({cuda_error_string(rc)})")
+        self.launches += 1
+
+
+def cuda_error_string(rc: int) -> str:
+    fn = library("field_kernels").ctt_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(rc).decode()
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+# Every kernel of the port, by the name chip_smoke.py and PERF.md use.
+KERNELS = {
+    k.name: k for k in (
+        Kernel("mont_mul", "field_kernels", "ctt_mont_mul", [I, P, P, P, P, I]),
+        Kernel("ec_add", "ec_kernels", "ctt_ec_add", [P] + [P] * 9 + [I]),
+        Kernel("ec_double_k", "ec_kernels", "ctt_ec_double_k", [P] + [P] * 6 + [I, I]),
+        Kernel("flush_scan", "ec_kernels", "ctt_flush_scan", [P, P, P, P, P, P, I, I]),
+        Kernel("merge_scan", "ec_kernels", "ctt_merge_scan", [P] + [P] * 7 + [I, I]),
+        Kernel("bucket_reduce", "ec_kernels", "ctt_bucket_reduce", [P] + [P] * 9 + [I, I]),
+    )
+}
+
+
+def reset_launch_counts():
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())

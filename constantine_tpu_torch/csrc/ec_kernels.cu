@@ -1,0 +1,213 @@
+// K3-K6: the G1 point kernels of the MSM, over BLS12-381 Fp (12 limbs).
+//
+// Replace constantine_tpu/ops/pallas_ec.py:
+//   K3  PallasEC._elemwise -> add, double, double_k  (ctt_ec_add, ctt_ec_double_k)
+//   K4  PallasEC.flush_scan   (ctt_flush_scan)
+//   K5  PallasEC.merge_scan   (ctt_merge_scan)
+//   K6  PallasEC.bucket_reduce (ctt_bucket_reduce)
+// All inline the field and point code of ec.cuh (K2, the reference's _KF).
+//
+// Layout is the reference's planar one: a coordinate array is (L, n) with
+// the lane axis contiguous, a stream is (K, L, M). Thread m owns lane m, so
+// a warp reading limb l of entry k reads 128 contiguous bytes.
+//
+// Translation of the sequential grid: the TPU kernels walk K (or T) on the
+// grid's minor axis and carry the accumulator in VMEM scratch between grid
+// steps. GPU blocks run in no order, so here each thread keeps its
+// accumulator in registers and loops over K itself; the scans' K steps are
+// one long dependency chain per lane.
+//
+// Bound on an H100: integer multiply issue -- a madd is 11 Montgomery
+// multiplies (~3,300 products) and an add 16 (~4,800) against 72-144 bytes
+// of input per step. With one thread per lane the commit's flush (M = 512
+// lanes, K = 184 steps) keeps 4 of the 132 SMs busy with one warp per
+// scheduler, so it is latency-bound well above that; the lane geometry is
+// the reference's, kept so each stage stays bit-exact against it.
+#include <cuda_runtime.h>
+
+#include "ec.cuh"
+
+using namespace ctt;
+
+namespace {
+
+constexpr int NL = 12;
+constexpr int THREADS = 128;
+using F = Fe<NL>;
+using J = Jac<NL>;
+using MD = Mod<NL>;
+
+__device__ __forceinline__ F load(const uint32_t* __restrict__ base, int stride, int idx) {
+  F r;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) r.v[l] = base[(size_t)l * stride + idx];
+  return r;
+}
+
+__device__ __forceinline__ void store(uint32_t* __restrict__ base, int stride, int idx,
+                                      const F& v) {
+#pragma unroll
+  for (int l = 0; l < NL; ++l) base[(size_t)l * stride + idx] = v.v[l];
+}
+
+__global__ void ec_add_kernel(MD md, const uint32_t* x1, const uint32_t* y1,
+                              const uint32_t* z1, const uint32_t* x2,
+                              const uint32_t* y2, const uint32_t* z2, uint32_t* x3,
+                              uint32_t* y3, uint32_t* z3, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const J P{load(x1, n, i), load(y1, n, i), load(z1, n, i)};
+  const J Q{load(x2, n, i), load(y2, n, i), load(z2, n, i)};
+  const J R = ec_add<NL>(P, Q, md);
+  store(x3, n, i, R.X);
+  store(y3, n, i, R.Y);
+  store(z3, n, i, R.Z);
+}
+
+__global__ void ec_double_k_kernel(MD md, const uint32_t* x, const uint32_t* y,
+                                   const uint32_t* z, uint32_t* ox, uint32_t* oy,
+                                   uint32_t* oz, int n, int k) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  J P{load(x, n, i), load(y, n, i), load(z, n, i)};
+  for (int s = 0; s < k; ++s) P = ec_double<NL>(P, md);
+  store(ox, n, i, P.X);
+  store(oy, n, i, P.Y);
+  store(oz, n, i, P.Z);
+}
+
+// keys (K, M); xy (K, 2*NL, M): rows 0..NL-1 are x, NL..2NL-1 the y limbs
+// (the reference's packed stream). Slot (k, m) of the outputs holds lane
+// m's accumulator after absorbing entry k.
+__global__ void flush_scan_kernel(MD md, const int* __restrict__ keys,
+                                  const uint32_t* __restrict__ xy, uint32_t* ex,
+                                  uint32_t* ey, uint32_t* ez, int K, int M) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  const F one = fe_one<NL>(md);
+  J acc = jac_infinity<NL>(md);
+  int cur = -1;
+  for (int k = 0; k < K; ++k) {
+    const int kk = keys[(size_t)k * M + m];
+    const uint32_t* row = xy + (size_t)k * 2 * NL * M;
+    const F X2 = load(row, M, m);
+    const F Y2 = load(row + (size_t)NL * M, M, m);
+    if (kk == cur) {
+      acc = ec_madd<NL>(acc, X2, Y2, md);
+    } else {
+      acc = J{X2, Y2, one};
+    }
+    cur = kk;
+    const size_t off = (size_t)k * NL * M;
+    store(ex + off, M, m, acc.X);
+    store(ey + off, M, m, acc.Y);
+    store(ez + off, M, m, acc.Z);
+  }
+}
+
+// Same scan over Jacobian partial sums; entries with key <= 0 are neutral.
+__global__ void merge_scan_kernel(MD md, const int* __restrict__ keys,
+                                  const uint32_t* __restrict__ qx,
+                                  const uint32_t* __restrict__ qy,
+                                  const uint32_t* __restrict__ qz, uint32_t* ex,
+                                  uint32_t* ey, uint32_t* ez, int K, int M) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  J acc = jac_infinity<NL>(md);
+  int cur = -1;
+  for (int k = 0; k < K; ++k) {
+    const int kk = keys[(size_t)k * M + m];
+    const size_t off = (size_t)k * NL * M;
+    J Q{load(qx + off, M, m), load(qy + off, M, m), load(qz + off, M, m)};
+    if (kk <= 0) Q.Z = fe_zero<NL>();
+    acc = (kk == cur) ? ec_add<NL>(acc, Q, md) : Q;
+    cur = kk;
+    store(ex + off, M, m, acc.X);
+    store(ey + off, M, m, acc.Y);
+    store(ez + off, M, m, acc.Z);
+  }
+}
+
+// Per lane c: run = sum_t B[t, c], wsum = sum_t (T-1-t) * B[t, c], by the
+// running-suffix trick (wsum absorbs run before run absorbs the bucket).
+__global__ void bucket_reduce_kernel(MD md, const uint32_t* bx, const uint32_t* by,
+                                     const uint32_t* bz, uint32_t* rx, uint32_t* ry,
+                                     uint32_t* rz, uint32_t* wx, uint32_t* wy,
+                                     uint32_t* wz, int T, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  J run = jac_infinity<NL>(md);
+  J wsum = run;
+  for (int t = 0; t < T; ++t) {
+    const size_t off = (size_t)t * NL * C;
+    const J B{load(bx + off, C, c), load(by + off, C, c), load(bz + off, C, c)};
+    wsum = ec_add<NL>(wsum, run, md);
+    run = ec_add<NL>(run, B, md);
+  }
+  store(rx, C, c, run.X);
+  store(ry, C, c, run.Y);
+  store(rz, C, c, run.Z);
+  store(wx, C, c, wsum.X);
+  store(wy, C, c, wsum.Y);
+  store(wz, C, c, wsum.Z);
+}
+
+inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
+
+}  // namespace
+
+extern "C" int ctt_ec_add(const uint32_t* mod_words, const void* x1, const void* y1,
+                          const void* z1, const void* x2, const void* y2,
+                          const void* z2, void* x3, void* y3, void* z3, int n,
+                          void* stream) {
+  if (n > 0)
+    ec_add_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+        mod_from_words<NL>(mod_words), (const uint32_t*)x1, (const uint32_t*)y1,
+        (const uint32_t*)z1, (const uint32_t*)x2, (const uint32_t*)y2,
+        (const uint32_t*)z2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ctt_ec_double_k(const uint32_t* mod_words, const void* x, const void* y,
+                               const void* z, void* ox, void* oy, void* oz, int n,
+                               int k, void* stream) {
+  if (n > 0)
+    ec_double_k_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+        mod_from_words<NL>(mod_words), (const uint32_t*)x, (const uint32_t*)y,
+        (const uint32_t*)z, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ctt_flush_scan(const uint32_t* mod_words, const void* keys,
+                              const void* xy, void* ex, void* ey, void* ez, int K,
+                              int M, void* stream) {
+  if (M > 0 && K > 0)
+    flush_scan_kernel<<<blocks(M), THREADS, 0, (cudaStream_t)stream>>>(
+        mod_from_words<NL>(mod_words), (const int*)keys, (const uint32_t*)xy,
+        (uint32_t*)ex, (uint32_t*)ey, (uint32_t*)ez, K, M);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ctt_merge_scan(const uint32_t* mod_words, const void* keys,
+                              const void* qx, const void* qy, const void* qz,
+                              void* ex, void* ey, void* ez, int K, int M,
+                              void* stream) {
+  if (M > 0 && K > 0)
+    merge_scan_kernel<<<blocks(M), THREADS, 0, (cudaStream_t)stream>>>(
+        mod_from_words<NL>(mod_words), (const int*)keys, (const uint32_t*)qx,
+        (const uint32_t*)qy, (const uint32_t*)qz, (uint32_t*)ex, (uint32_t*)ey,
+        (uint32_t*)ez, K, M);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ctt_bucket_reduce(const uint32_t* mod_words, const void* bx,
+                                 const void* by, const void* bz, void* rx, void* ry,
+                                 void* rz, void* wx, void* wy, void* wz, int T, int C,
+                                 void* stream) {
+  if (C > 0)
+    bucket_reduce_kernel<<<blocks(C), THREADS, 0, (cudaStream_t)stream>>>(
+        mod_from_words<NL>(mod_words), (const uint32_t*)bx, (const uint32_t*)by,
+        (const uint32_t*)bz, (uint32_t*)rx, (uint32_t*)ry, (uint32_t*)rz,
+        (uint32_t*)wx, (uint32_t*)wy, (uint32_t*)wz, T, C);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,316 @@
+"""K3-K6: G1 point kernels -- wrappers and plain versions.
+
+Counterpart of ``constantine_tpu/ops/pallas_ec.py`` (``PallasEC``). Public
+methods take the reference's planar layout: a coordinate is an int32 tensor
+(NL, n) with the lane axis contiguous; streams are (K, NL, M). On CUDA
+tensors each method launches its kernel from ``csrc/ec_kernels.cu``; on CPU
+tensors it runs the plain version below, which repeats the kernel's
+formulas with torch ops (``ec_double``, ``ec_madd``, ``ec_add``: the
+reference's ``_KF`` group law, selects in the same order).
+
+``scaled_doubles`` (K7, the window combine) is not ported yet: only its
+one-window case, which launches nothing, is here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import build
+from .cuda_field import mont_mul_plain
+
+# ---------------------------------------------------------------------------
+# Group law on standard-layout (n, NL) coordinates (a = 0, Jacobian)
+# ---------------------------------------------------------------------------
+
+
+def ec_double(F, mul, P):
+    """dbl-2009-l. Z = 0 in gives Z = 0 out; Y = 0 gives infinity."""
+    X, Y, Z = P
+    add, sub, dbl = F.add, F.sub, F.double
+    A = mul(X, X)
+    B = mul(Y, Y)
+    C = mul(B, B)
+    t = add(X, B)
+    t = mul(t, t)
+    D = dbl(sub(sub(t, A), C))
+    E = add(dbl(A), A)
+    Fq = mul(E, E)
+    X3 = sub(Fq, dbl(D))
+    Y3 = sub(mul(E, sub(D, X3)), dbl(dbl(dbl(C))))
+    Z3 = dbl(mul(Y, Z))
+    return X3, Y3, Z3
+
+
+def _finish(F, mul, P, cond_dbl, cond_opp, out):
+    """The shared degenerate-case selects: doubling, then P == -Q. The
+    doubling is computed only when a lane takes it, as the reference
+    kernel's ``@pl.when(jnp.any(is_dbl))``."""
+    if bool(cond_dbl.any()):
+        out = tuple(F.cselect(cond_dbl, d, o) for d, o in zip(ec_double(F, mul, P), out))
+    one = F.broadcast_one(out[0].shape[:-1], out[0].device)
+    zero = torch.zeros_like(out[2])
+    return tuple(F.cselect(cond_opp, v, o) for v, o in zip((one, one, zero), out))
+
+
+def ec_madd(F, mul, P, Q):
+    """Jacobian P + affine Q (madd-2007-bl, complete by selects; Q != inf)."""
+    X1, Y1, Z1 = P
+    X2, Y2 = Q
+    add, sub, dbl = F.add, F.sub, F.double
+    Z1Z1 = mul(Z1, Z1)
+    U2 = mul(X2, Z1Z1)
+    S2 = mul(mul(Y2, Z1), Z1Z1)
+    H = sub(U2, X1)
+    HH = mul(H, H)
+    I = dbl(dbl(HH))
+    J = mul(H, I)
+    R = dbl(sub(S2, Y1))
+    V = mul(X1, I)
+    R2 = mul(R, R)
+    X3 = sub(sub(R2, J), dbl(V))
+    Y3 = sub(mul(R, sub(V, X3)), dbl(mul(Y1, J)))
+    ZH = add(Z1, H)
+    Z3 = sub(sub(mul(ZH, ZH), Z1Z1), HH)
+    p_inf = F.is_zero(Z1)
+    h0 = F.is_zero(H)
+    r0 = F.is_zero(R)
+    is_dbl = ~p_inf & h0 & r0
+    is_opp = ~p_inf & h0 & ~r0
+    out = _finish(F, mul, P, is_dbl, is_opp, (X3, Y3, Z3))
+    one = F.broadcast_one(X1.shape[:-1], X1.device)
+    return tuple(F.cselect(p_inf, q, o) for q, o in zip((X2, Y2, one), out))
+
+
+def ec_add(F, mul, P, Q):
+    """Complete Jacobian P + Q (add-2007-bl, complete by selects)."""
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+    add, sub, dbl = F.add, F.sub, F.double
+    Z1Z1 = mul(Z1, Z1)
+    Z2Z2 = mul(Z2, Z2)
+    U1 = mul(X1, Z2Z2)
+    U2 = mul(X2, Z1Z1)
+    S1 = mul(mul(Y1, Z2), Z2Z2)
+    S2 = mul(mul(Y2, Z1), Z1Z1)
+    H = sub(U2, U1)
+    R = dbl(sub(S2, S1))
+    H2 = dbl(H)
+    I = mul(H2, H2)
+    J = mul(H, I)
+    V = mul(U1, I)
+    X3 = sub(sub(mul(R, R), J), dbl(V))
+    Y3 = sub(mul(R, sub(V, X3)), dbl(mul(S1, J)))
+    ZZ = add(Z1, Z2)
+    Z3 = mul(sub(sub(mul(ZZ, ZZ), Z1Z1), Z2Z2), H)
+    p_inf = F.is_zero(Z1)
+    q_inf = F.is_zero(Z2)
+    h0 = F.is_zero(H)
+    r0 = F.is_zero(R)
+    both = ~p_inf & ~q_inf
+    out = _finish(F, mul, P, both & h0 & r0, both & h0 & ~r0, (X3, Y3, Z3))
+    out = tuple(F.cselect(p_inf, q, o) for q, o in zip(Q, out))
+    return tuple(F.cselect(q_inf, p, o) for p, o in zip(P, out))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _on_cuda(*ts) -> bool:
+    """True if every tensor is on one CUDA device, False if all on the CPU."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for t in ts:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError("kernels take contiguous int32 limb tensors")
+    return True
+
+
+def _std(v):
+    """(NL, n) planar -> (n, NL) standard layout."""
+    return v.transpose(-1, -2)
+
+
+def _planar(v):
+    return v.transpose(-1, -2).contiguous()
+
+
+class CudaEC:
+    """Point kernels for an a = 0 short-Weierstrass group over F (NL = 12)."""
+
+    def __init__(self, field):
+        if field.NL != 12:
+            raise ValueError("the point kernels are built for 12-limb Fp")
+        self.F = field
+        self.NL = field.NL
+        self._mod = ctypes.c_void_p(field.mod_words.ctypes.data)
+
+    def _mul_plain(self, a, b):
+        return mont_mul_plain(a, b, self.F)
+
+    # -- K3: elementwise ------------------------------------------------------
+
+    def _check_coords(self, coords):
+        shape = coords[0].shape
+        if len(shape) != 2 or shape[0] != self.NL or any(c.shape != shape for c in coords):
+            raise ValueError(f"point kernels take (NL={self.NL}, n) coordinates, "
+                             f"got {[tuple(c.shape) for c in coords]}")
+
+    def add(self, P, Q):
+        """(X, Y, Z) + (X, Y, Z), all (NL, n). Returns (NL, n) x 3."""
+        self._check_coords((*P, *Q))
+        if not _on_cuda(*P, *Q):
+            out = ec_add(self.F, self._mul_plain, tuple(map(_std, P)),
+                         tuple(map(_std, Q)))
+            return tuple(map(_planar, out))
+        n = P[0].shape[1]
+        out = tuple(torch.empty_like(P[0]) for _ in range(3))
+        build.KERNELS["ec_add"](P[0].device, self._mod,
+                                *map(build.ptr, (*P, *Q, *out)), n)
+        return out
+
+    def double_k(self, P, k: int):
+        """k successive doublings of (NL, n) points."""
+        self._check_coords(P)
+        if not _on_cuda(*P):
+            out = tuple(map(_std, P))
+            for _ in range(k):
+                out = ec_double(self.F, self._mul_plain, out)
+            return tuple(map(_planar, out))
+        n = P[0].shape[1]
+        out = tuple(torch.empty_like(P[0]) for _ in range(3))
+        build.KERNELS["ec_double_k"](P[0].device, self._mod,
+                                     *map(build.ptr, (*P, *out)), n, k)
+        return out
+
+    def double(self, P):
+        return self.double_k(P, 1)
+
+    # -- K4: flush scan ---------------------------------------------------------
+
+    def flush_scan(self, keys, xy):
+        """Bucket-accumulation scan over a key-sorted stream.
+
+        keys (K, M) int32; xy (K, 2*NL, M): rows 0..NL-1 the x limbs and
+        NL..2NL-1 the (pre-negated) y limbs of each affine entry -- the
+        reference's packed stream, whose u32 words are these limbs. Lane m
+        sweeps keys[:, m]; slot (k, m) of the returned (ex, ey, ez)
+        (K, NL, M) holds its accumulator after entry k, restarting at the
+        entry whenever the key changes.
+        """
+        K, M = keys.shape
+        NL = self.NL
+        if xy.shape != (K, 2 * NL, M):
+            raise ValueError(f"flush_scan: stream {tuple(xy.shape)} for keys {K}x{M}")
+        if not _on_cuda(keys, xy):
+            return self._flush_scan_plain(keys, xy)
+        out = tuple(torch.empty((K, NL, M), dtype=torch.int32, device=keys.device)
+                    for _ in range(3))
+        build.KERNELS["flush_scan"](keys.device, self._mod,
+                                    *map(build.ptr, (keys, xy, *out)), K, M)
+        return out
+
+    def _flush_scan_plain(self, keys, xy):
+        F, NL = self.F, self.NL
+        K, M = keys.shape
+        one = F.broadcast_one((M,), keys.device)
+        acc = (one, one, torch.zeros_like(one))
+        cur = torch.full((M,), -1, dtype=keys.dtype, device=keys.device)
+        outs = []
+        for k in range(K):
+            kk = keys[k]
+            X2, Y2 = _std(xy[k, :NL]), _std(xy[k, NL:])
+            g = ec_madd(F, self._mul_plain, acc, (X2, Y2))
+            same = kk == cur
+            acc = tuple(F.cselect(same, gv, fv) for gv, fv in zip(g, (X2, Y2, one)))
+            outs.append(acc)
+            cur = kk
+        return tuple(torch.stack([_std(o[i]) for o in outs]).contiguous()
+                     for i in range(3))
+
+    # -- K5: merge scan ---------------------------------------------------------
+
+    def merge_scan(self, keys, qx, qy, qz):
+        """Like flush_scan over Jacobian partial sums (K, NL, M); entries
+        with key <= 0 are neutral padding."""
+        K, M = keys.shape
+        NL = self.NL
+        for q in (qx, qy, qz):
+            if q.shape != (K, NL, M):
+                raise ValueError(f"merge_scan: {tuple(q.shape)} for keys {K}x{M}")
+        if not _on_cuda(keys, qx, qy, qz):
+            return self._merge_scan_plain(keys, qx, qy, qz)
+        out = tuple(torch.empty_like(qx) for _ in range(3))
+        build.KERNELS["merge_scan"](keys.device, self._mod,
+                                    *map(build.ptr, (keys, qx, qy, qz, *out)), K, M)
+        return out
+
+    def _merge_scan_plain(self, keys, qx, qy, qz):
+        F = self.F
+        K, M = keys.shape
+        one = F.broadcast_one((M,), keys.device)
+        acc = (one, one, torch.zeros_like(one))
+        cur = torch.full((M,), -1, dtype=keys.dtype, device=keys.device)
+        outs = []
+        for k in range(K):
+            kk = keys[k]
+            Q = (_std(qx[k]), _std(qy[k]), _std(qz[k]))
+            Q = (Q[0], Q[1], F.cselect(kk <= 0, torch.zeros_like(Q[2]), Q[2]))
+            g = ec_add(F, self._mul_plain, acc, Q)
+            same = kk == cur
+            acc = tuple(F.cselect(same, gv, qv) for gv, qv in zip(g, Q))
+            outs.append(acc)
+            cur = kk
+        return tuple(torch.stack([_std(o[i]) for o in outs]).contiguous()
+                     for i in range(3))
+
+    # -- K6: weighted bucket reduction -------------------------------------------
+
+    def bucket_reduce(self, bx, by, bz, T: int):
+        """Inputs (T, NL, C) bucket sums. Per lane c: run = sum_t B[t, c] and
+        wsum = sum_t (T-1-t) B[t, c]. Returns ((run), (wsum)), each (NL, C) x 3."""
+        Tn, NL, C = bx.shape
+        if Tn != T or NL != self.NL or by.shape != bx.shape or bz.shape != bx.shape:
+            raise ValueError(f"bucket_reduce: {tuple(bx.shape)} with T={T}")
+        if not _on_cuda(bx, by, bz):
+            return self._bucket_reduce_plain(bx, by, bz, T)
+        out = tuple(torch.empty((NL, C), dtype=torch.int32, device=bx.device)
+                    for _ in range(6))
+        build.KERNELS["bucket_reduce"](bx.device, self._mod,
+                                       *map(build.ptr, (bx, by, bz, *out)), T, C)
+        return out[:3], out[3:]
+
+    def _bucket_reduce_plain(self, bx, by, bz, T):
+        F = self.F
+        C = bx.shape[2]
+        one = F.broadcast_one((C,), bx.device)
+        run = (one, one, torch.zeros_like(one))
+        wsum = run
+        for t in range(T):
+            B = (_std(bx[t]), _std(by[t]), _std(bz[t]))
+            wsum = ec_add(F, self._mul_plain, wsum, run)
+            run = ec_add(F, self._mul_plain, run, B)
+        return tuple(map(_planar, run)), tuple(map(_planar, wsum))
+
+    # -- K7 (not ported): window combine ------------------------------------------
+
+    def scaled_doubles(self, P, c: int, Wn: int):
+        """Lane w of (NL, Wn) becomes 2^(c*w) P_w. Only Wn = 1 (no
+        doubling, nothing launched) is supported in this slice."""
+        if P[0].shape[1] != Wn:
+            raise ValueError("scaled_doubles: lane count mismatch")
+        if (Wn - 1) * c == 0:
+            return P
+        raise NotImplementedError(
+            "scaled_doubles (K7, the online MSM's window combine) is not ported "
+            "yet: ROADMAP.md slice 2")

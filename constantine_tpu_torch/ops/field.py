@@ -1,0 +1,196 @@
+"""Batched prime-field arithmetic in Montgomery form.
+
+Counterpart of ``constantine_tpu/ops/field.py`` (``Field``). Elements are
+int32 tensors (..., NL) of 32-bit limbs (see ``limbs.py``), canonical (< p),
+in the Montgomery domain with R = 2^(32*NL) -- the reference's R -- unless a
+method says otherwise. ``mul`` (and everything built on it) runs the K1
+kernel on CUDA tensors; add, sub and the rest are plain torch ops on either
+device, as they were XLA ops in the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import limbs as lb
+from .cuda_field import mont_mul
+
+
+class Field:
+    """Prime field GF(p) with batched Montgomery-form arithmetic."""
+
+    def __init__(self, p: int, name: str = "Fp"):
+        self.p_int = int(p)
+        self.name = name
+        self.bits = self.p_int.bit_length()
+        self.NL = lb.num_limbs(self.bits)
+        self.R_int = 1 << (lb.LIMB_BITS * self.NL)
+        if 2 * self.p_int >= self.R_int:
+            raise ValueError("the CIOS kernels need p < R/2")
+        NL = self.NL
+        self.p = lb.int_to_limbs(self.p_int, NL)
+        self.r2 = lb.int_to_limbs(self.R_int * self.R_int % self.p_int, NL)
+        self.one = lb.int_to_limbs(self.R_int % self.p_int, NL)   # Montgomery 1
+        # -p^-1 mod 2^32: the CIOS constant of the 32-bit-limb kernels
+        self.m0ninv = (-pow(self.p_int, -1, 1 << 32)) % (1 << 32)
+        # kernel argument: p limbs, m0, Montgomery one (csrc/ec.cuh Mod<N>)
+        self.mod_words = np.concatenate(
+            [self.p, np.array([self.m0ninv], np.uint32), self.one]).astype(np.uint32)
+        nprime = (-pow(self.p_int, -1, self.R_int)) % self.R_int
+        D = 2 * NL                                  # 16-bit digits
+        p16 = lb.unpack16(self.p).astype(np.int64)
+        nprime16 = lb.unpack16(lb.int_to_limbs(nprime, NL)).astype(np.int64)
+        self._host = {
+            "p32": self.p.astype(np.int64),
+            "p16": p16,
+            "one": self.one.view(np.int32),
+            "r2": self.r2.view(np.int32),
+            # plain multiply: a*b column sums, and products with -p^-1 (mod R)
+            # and with p as float64 matrices (see limbs.column_products)
+            "diag": lb.diagonal_sum_matrix(D, D),
+            "nprime_t": lb.toeplitz_matrix(nprime16, D, D),
+            "p_t": lb.toeplitz_matrix(p16, D, 2 * D - 1),
+        }
+        self._dev = {}
+
+    def consts(self, device) -> dict:
+        """The field's constants as tensors on `device` (cached)."""
+        device = torch.device(device)
+        if device not in self._dev:
+            self._dev[device] = {k: torch.from_numpy(v.copy()).to(device)
+                                 for k, v in self._host.items()}
+        return self._dev[device]
+
+    # -- host-side conversions ------------------------------------------------
+
+    def from_int(self, x, device="cpu") -> torch.Tensor:
+        """Python int(s) -> canonical (not Montgomery) limbs."""
+        if isinstance(x, int):
+            return lb.to_tensor(lb.int_to_limbs(x % self.p_int, self.NL), device)
+        return lb.to_tensor(lb.ints_to_limbs([v % self.p_int for v in x], self.NL), device)
+
+    def encode(self, x, device="cpu") -> torch.Tensor:
+        """Python int(s) -> Montgomery-form limbs (host arithmetic)."""
+        if isinstance(x, int):
+            return self.from_int(x * self.R_int % self.p_int, device)
+        return self.from_int([v * self.R_int % self.p_int for v in x], device)
+
+    def decode(self, a):
+        """Montgomery-form limbs -> python int(s)."""
+        rinv = pow(self.R_int, -1, self.p_int)
+        vals = [v * rinv % self.p_int for v in lb.limbs_to_ints(a)]
+        return vals[0] if a.dim() == 1 else vals
+
+    # -- shape helpers ---------------------------------------------------------
+
+    def broadcast_zero(self, shape, device) -> torch.Tensor:
+        return torch.zeros(tuple(shape) + (self.NL,), dtype=torch.int32, device=device)
+
+    def broadcast_one(self, shape, device) -> torch.Tensor:
+        return self.consts(device)["one"].expand(tuple(shape) + (self.NL,))
+
+    # -- core modular ops --------------------------------------------------------
+
+    def add(self, a, b):
+        p = self.consts(a.device)["p32"]
+        s, carry = lb.add_carry(lb.widen(a), lb.widen(b))
+        d, borrow = lb.sub_borrow(s, p)
+        return lb.narrow(lb.cselect((carry == 1) | (borrow == 0), d, s))
+
+    def sub(self, a, b):
+        p = self.consts(a.device)["p32"]
+        d, borrow = lb.sub_borrow(lb.widen(a), lb.widen(b))
+        dp, _ = lb.add_carry(d, p)
+        return lb.narrow(lb.cselect(borrow == 1, dp, d))
+
+    def neg(self, a):
+        p = self.consts(a.device)["p32"]
+        d, _ = lb.sub_borrow(p, lb.widen(a))
+        return torch.where(lb.is_zero(a)[..., None], a, lb.narrow(d))
+
+    def double(self, a):
+        return self.add(a, a)
+
+    def mul(self, a, b):
+        """Montgomery product a*b*R^-1 mod p (K1 on CUDA tensors)."""
+        return mont_mul(a, b, self)
+
+    def square(self, a):
+        return self.mul(a, a)
+
+    def to_mont(self, a):
+        return self.mul(a, self.consts(a.device)["r2"])
+
+    def from_mont(self, a):
+        one_canon = torch.zeros_like(a)
+        one_canon[..., 0] = 1
+        return self.mul(a, one_canon)
+
+    # -- exponentiation ---------------------------------------------------------
+
+    def pow_const(self, a, e: int):
+        """a^e for a host-known exponent, fixed 4-bit windows (most
+        significant first), as in the reference."""
+        window = 4
+        if e == 0:
+            return self.broadcast_one(a.shape[:-1], a.device).clone()
+        nwin = -(-e.bit_length() // window)
+        digits = [(e >> (window * i)) & ((1 << window) - 1)
+                  for i in range(nwin - 1, -1, -1)]
+        table = [self.broadcast_one(a.shape[:-1], a.device), a]
+        for _ in range(2, 1 << window):
+            table.append(self.mul(table[-1], a))
+        res = self.broadcast_one(a.shape[:-1], a.device)
+        for dig in digits:
+            for _ in range(window):
+                res = self.square(res)
+            res = self.mul(res, table[dig])
+        return res
+
+    def inv(self, a):
+        """Inverse by Fermat, a^(p-2); 0 maps to 0."""
+        return self.pow_const(a, self.p_int - 2)
+
+    def batch_inv(self, a):
+        """Montgomery-trick batch inversion over the flattened batch axes:
+        chains of 32 products across lanes, one Fermat inversion of the
+        chain totals, then the backward unwind (3 muls per element). Zero
+        entries give zero."""
+        chain = 32
+        batch_shape = a.shape[:-1]
+        n = int(np.prod(batch_shape)) if batch_shape else 1
+        flat = a.reshape(n, self.NL)
+        zero_mask = lb.is_zero(flat)
+        one = self.broadcast_one((n,), a.device)
+        a_safe = lb.cselect(zero_mask, one, flat)
+        K = min(chain, n)
+        pad = (-n) % K
+        if pad:
+            a_safe = torch.cat([a_safe, self.broadcast_one((pad,), a.device)])
+        G = (n + pad) // K
+        x = a_safe.reshape(G, K, self.NL).transpose(0, 1)         # (K, G, NL)
+        run = self.broadcast_one((G,), a.device)
+        pre_exc = []
+        for i in range(K):                                        # forward
+            pre_exc.append(run)
+            run = self.mul(run, x[i])
+        state = self.inv(run)
+        invs = [None] * K
+        for i in range(K - 1, -1, -1):                            # unwind
+            invs[i] = self.mul(state, pre_exc[i])
+            state = self.mul(state, x[i])
+        out = torch.stack(invs).transpose(0, 1).reshape(n + pad, self.NL)[:n]
+        out = lb.cselect(zero_mask, torch.zeros_like(out), out)
+        return out.reshape(a.shape)
+
+    # -- predicates --------------------------------------------------------------
+
+    def is_zero(self, a):
+        return lb.is_zero(a)
+
+    def eq(self, a, b):
+        return lb.eq(a, b)
+
+    def cselect(self, cond, a, b):
+        return lb.cselect(cond, a, b)
