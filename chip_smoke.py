@@ -1,21 +1,37 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Run the PyTorch/CUDA port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 1. Builds every kernel of constantine_tpu_torch/csrc with nvcc for sm_90a
-   and checks each against its plain PyTorch version at small shapes.
-2. Main path, with every launch count set to 0 first: loads the EIP-4844
-   trusted setup, builds the KZG context (the fixed-base tables, on the
-   card) and commits to four blobs through blob_to_kzg_commitment: a zero
-   blob (infinity), a sparse blob (held against the host big-int sum) and
-   two dense blobs (held against tests/data/torch_kzg_golden.json, made by
-   the JAX package). Every kernel must have launched in this run.
-3. Holds every kernel against its plain version on the card at the main
-   path's shapes, with hand-built degenerate lanes (P == Q, P == -Q,
-   infinity, padding keys): exact equality. Times both, and computes each
-   kernel's bound from the bytes it must move and the multiplies it must
-   do on these inputs.
+   and checks each against its plain PyTorch version at small shapes (K7
+   with an infinity lane and a Y = 0 lane; K8-K10 and Field.batch_inv over
+   Fp and Fr).
+2. Four paths, each driven with every launch count set to 0 just before it
+   and read just after; each must have launched every kernel it runs:
+   a. fixed-base commit: loads the EIP-4844 trusted setup, builds the KZG
+      context (the fixed-base tables, on the card) and commits to four
+      blobs through blob_to_kzg_commitment: a zero blob (infinity), a
+      sparse blob (held against the host big-int sum) and two dense blobs
+      (held against tests/data/torch_kzg_golden.json, made by the JAX
+      package); then 5 timed commits;
+   b. online commit: get_kzg(precompute=False), the online MSM with the GLV
+      split and the window combine, on the same four blobs and bytes; 5
+      timed commits;
+   c. batched commit: blob_to_kzg_commitment_batch of 16 blobs (zero,
+      sparse, the two golden blobs, 12 dense blobs from seeds), each equal
+      byte for byte to the fixed-base single commit of its blob; 3 timed;
+   d. online MSM at N = 2^16 (bench.py's bls12381_g1_msm_65536 shape) over
+      the first 65,536 fixed-base table rows, [2^(12j)] L_i for j < 16, with
+      scalars k from a seed: equal in affine to the fixed-base commit of
+      e_i = sum_j k_{4096j+i} 2^(12j) mod r; 5 timed.
+   Every kernel must have launched over the four paths.
+3. Holds every kernel against its plain version on the card at the paths'
+   shapes (K4-K6 on both the fixed-base and the online commit's streams),
+   with hand-built degenerate lanes (P == Q, P == -Q, infinity,
+   padding keys): exact equality. Times both, and computes each kernel's
+   bound from the bytes it must move and the multiplies it must do on these
+   inputs.
 4. Prints the kernels' JSON line, then the result line.
 
 Any failed check exits non-zero before the result line; so does a machine
@@ -45,16 +61,30 @@ MUL_OPS = 2 * (2 * NL * NL + NL)          # one 12-limb CIOS multiply
 MULS = {"madd": 11, "add": 16, "double": 7}
 FE_BYTES = 4 * NL
 
+EC_SRC = "constantine_tpu_torch/csrc/ec_kernels.cu"
+FIELD_SRC = "constantine_tpu_torch/csrc/field_kernels.cu"
 REPLACES = {
-    "mont_mul": ("constantine_tpu_torch/csrc/field_kernels.cu",
-                 "constantine_tpu/ops/pallas_field.py:89"),
-    "ec_add": ("constantine_tpu_torch/csrc/ec_kernels.cu", "constantine_tpu/ops/pallas_ec.py:543"),
-    "ec_double_k": ("constantine_tpu_torch/csrc/ec_kernels.cu",
-                    "constantine_tpu/ops/pallas_ec.py:543"),
-    "flush_scan": ("constantine_tpu_torch/csrc/ec_kernels.cu", "constantine_tpu/ops/pallas_ec.py:745"),
-    "merge_scan": ("constantine_tpu_torch/csrc/ec_kernels.cu", "constantine_tpu/ops/pallas_ec.py:828"),
-    "bucket_reduce": ("constantine_tpu_torch/csrc/ec_kernels.cu",
-                      "constantine_tpu/ops/pallas_ec.py:910"),
+    "mont_mul": (FIELD_SRC, "constantine_tpu/ops/pallas_field.py:89"),
+    "ec_add": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:543"),
+    "ec_double_k": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:543"),
+    "flush_scan": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:745"),
+    "merge_scan": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:828"),
+    "bucket_reduce": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:910"),
+    "scaled_doubles": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:977"),
+    "chain_fwd": (FIELD_SRC, "constantine_tpu/ops/pallas_ec.py:1078"),
+    "fermat_inv": (FIELD_SRC, "constantine_tpu/ops/pallas_ec.py:1126"),
+    "chain_bwd_inv": (FIELD_SRC, "constantine_tpu/ops/pallas_ec.py:1196"),
+}
+PIPELINE = ("mont_mul", "ec_add", "ec_double_k", "flush_scan", "merge_scan", "bucket_reduce")
+# what each path must launch: the fixed-base setup inverts 90,112 points
+# through the chains, every export inverts through fermat_inv, and the
+# online MSMs combine windows with scaled_doubles (the bare MSM returns a
+# Jacobian point: no inversion)
+PATH_KERNELS = {
+    "commit": PIPELINE + ("chain_fwd", "fermat_inv", "chain_bwd_inv"),
+    "online commit": PIPELINE + ("scaled_doubles", "fermat_inv"),
+    "batch 16": PIPELINE + ("fermat_inv",),
+    "msm 2^16": PIPELINE + ("scaled_doubles",),
 }
 
 
@@ -89,40 +119,49 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def profile_commit(torch, commit):
-    """Device time by kernel over one commit (torch.profiler), and the share
-    of the commit's wall time the device spent idle."""
+def host_ms(torch, fn, reps):
+    """Host-clock milliseconds of `reps` calls, each ending synchronised."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def profile_call(torch, names, label, fn):
+    """Device time by kernel over one call (torch.profiler), and the share
+    of the call's wall time the device spent idle."""
     from torch.profiler import ProfilerActivity, profile
-    commit()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        commit()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = next((k for k in ("mont_mul", "ec_add", "ec_double_k", "flush_scan",
-                                     "merge_scan", "bucket_reduce") if k + "_kernel" in e.name),
-                        "torch ops")
+            name = next((k for k in names if k + "_kernel" in e.name), "torch ops")
             span = e.time_range.end - e.time_range.start
             n, t = by_name.get(name, (0, 0.0))
             by_name[name] = (n + 1, t + span)
     busy_us = sum(t for _, t in by_name.values())
     if busy_us == 0:
-        print("profile: the profiler recorded no device time (idle share not measured)",
-              flush=True)
+        print(f"profile of one {label}: the profiler recorded no device time "
+              "(idle share not measured)", flush=True)
         return
     parts = ", ".join(f"{k} {t / 1e3:.3f} ms x{n}" for k, (n, t) in
                       sorted(by_name.items(), key=lambda kv: -kv[1][1]))
-    print(f"profile of one commit: wall {wall_us / 1e3:.3f} ms, device busy "
+    print(f"profile of one {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}; {parts}", flush=True)
 
 
-def bound(nbytes, nmuls):
+def bound(nbytes, nmuls, mul_ops=MUL_OPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = nmuls * MUL_OPS / PEAK_OPS_PER_S
+    t_ops = nmuls * mul_ops / PEAK_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -138,9 +177,10 @@ def max_abs_err(lb, got, ref):
 
 def main():
     try:
+        import numpy as np
         import torch
     except ImportError:
-        print("torch is not installed", file=sys.stderr)
+        print("torch and numpy are needed", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False: this script needs an NVIDIA card",
@@ -157,7 +197,8 @@ def main():
         from constantine_tpu_torch.ops import msm_gpu
         from constantine_tpu_torch.ops.cuda_ec import ec_add, ec_double
         from constantine_tpu_torch.ops.cuda_field import mont_mul, mont_mul_plain
-        from constantine_tpu_torch.ops.msm import _signed_digits
+        from constantine_tpu_torch.ops.msm import (_apply_glv, _glv_for_group,
+                                                   _signed_digits, msm)
         from constantine_tpu_torch.ops.ntt import bit_reversal_perm
         from constantine_tpu_torch.utils import refmath as rm
         from constantine_tpu_torch.utils.serialization import (g1_compress_affine,
@@ -186,6 +227,7 @@ def main():
     ctx = get_curve("BLS12_381")
     F, g = ctx.fp, ctx.g1
     pec = g.pec
+    r = ctx.r
     mul_plain = lambda a, b: mont_mul_plain(a, b, F)  # noqa: E731
     rng = torch.Generator(device="cpu").manual_seed(20261016)
 
@@ -206,6 +248,11 @@ def main():
                 bad = (a != b).reshape(a.shape[0], -1).any(-1) if a.dim() > 1 else a != b
                 raise CheckFailed(f"{what}: output {i} differs from the plain version "
                                   f"(first rows {bad.nonzero().flatten()[:8].tolist()})")
+
+    def affine(P):
+        """Jacobian point (NL,) x 3 -> host ints (x, y), or None for infinity."""
+        (x, y), inf = g.to_affine(tuple(t[None] for t in P))
+        return None if bool(inf[0]) else (F.decode(x)[0], F.decode(y)[0])
 
     # ---- 1. quick checks at small shapes ------------------------------------
     for field in (F, ctx.fr):
@@ -244,12 +291,42 @@ def main():
     same(pec.merge_scan(qk2, *qj), pec._merge_scan_plain(qk2, *qj), "merge_scan quick")
     same(sum(pec.bucket_reduce(*(v[:4] for v in qj), 4), ()),
          sum(pec._bucket_reduce_plain(*(v[:4] for v in qj), 4), ()), "bucket_reduce quick")
+    # K7 at (NL, 4), c = 3: lane 1 infinity, lane 3 Y = 0 (becomes infinity)
+    P7 = planar(tuple(v[:4] for v in J))
+    P7[2][:, 1] = 0
+    P7[1][:, 3] = 0
+    got7 = pec.scaled_doubles(P7, 3, 4)
+    same(got7, pec._scaled_doubles_plain(P7, 3, 4), "scaled_doubles quick")
+    check(g.is_inf(std(got7)).tolist() == [False, True, False, True],
+          "scaled_doubles quick: degenerate lanes")
+    # K8-K10 over Fp and Fr: chains (C = 4, Mw = 12) and both recursion levels
+    # of batch_inv_packed at C = 4, block = 4 (48 -> 12 -> fermat); then
+    # Field.batch_inv with zeros at chain boundaries
+    for field in (F, ctx.fr):
+        aff = field.affine
+        x = rand_fe(48, field)
+        dC = x.T.reshape(field.NL, 4, 12).transpose(0, 1).contiguous()
+        pe, bp = aff.chain_fwd(dC)
+        same((pe, bp), aff._chain_fwd_plain(dC), f"chain_fwd quick {field.name}")
+        bi = aff.fermat_inv(bp)
+        same((bi,), (aff._fermat_inv_plain(bp),), f"fermat_inv quick {field.name}")
+        same((aff.chain_bwd_inv(pe, dC, bi),), (aff._chain_bwd_inv_plain(pe, dC, bi),),
+             f"chain_bwd_inv quick {field.name}")
+        want = [pow(v, -1, field.p_int) for v in field.decode(x)]
+        check(field.decode(aff.batch_inv_packed(x.T.contiguous(), C=4, block=4).T) == want,
+              f"batch_inv_packed quick {field.name}")
+        z = rand_fe(70, field)
+        for i in (0, 31, 32, 63, 69):
+            z[i] = 0
+        check(field.decode(field.batch_inv(z)) ==
+              [pow(v, -1, field.p_int) if v else 0 for v in field.decode(z)],
+              f"Field.batch_inv quick {field.name}")
     print("quick checks: mont_mul (Fp, Fr), ec_add, ec_double_k, flush_scan, merge_scan, "
-          "bucket_reduce exact", flush=True)
+          "bucket_reduce, scaled_doubles, chain_fwd, fermat_inv, chain_bwd_inv (Fp, Fr) "
+          "exact", flush=True)
 
-    # ---- 2. the main path ------------------------------------------------------
+    # ---- 2. the paths ---------------------------------------------------------------
     golden = json.loads(GOLDEN.read_text())
-    r = ctx.r
     blobs = {"zero": bytes(eip4844.BYTES_PER_BLOB)}
     sparse = {3: 0x1234567, 1000: r - 1, 4095: int.from_bytes(b"sparse-blob" * 2, "big") % r}
     sb = bytearray(eip4844.BYTES_PER_BLOB)
@@ -274,8 +351,24 @@ def main():
     for entry in golden["blobs"]:
         expected[f"dense{entry['seed']}"] = bytes.fromhex(entry["commitment"])
 
-    build.reset_launch_counts()
-    torch.cuda.synchronize()
+    path_counts = {}
+    per_call = {}
+
+    def start_path():
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+
+    def end_path(name, timed_before, calls):
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        path_counts[name] = counts
+        per_call[name] = {k: (counts[k] - timed_before[k]) / calls for k in counts}
+        missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
+        check(not missing, f"{name}: kernels of the path never launched: {missing}")
+        print(f"launches on the {name} path: {json.dumps(counts)}", flush=True)
+
+    # a. fixed-base commit: setup + 4 checked + 5 timed commits
+    start_path()
     t0 = time.perf_counter()
     kzg = get_kzg("cuda")
     torch.cuda.synchronize()
@@ -286,28 +379,99 @@ def main():
                                      f"!= expected {expected[name].hex()}")
         print(f"blob {name}: commitment {got.hex()} matches", flush=True)
     before = build.launch_counts()
-    lat = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        eip4844.blob_to_kzg_commitment(blobs["dense1"], kzg)
-        lat.append((time.perf_counter() - t0) * 1e3)
-    counts = build.launch_counts()
-    per_commit = {k: (counts[k] - before[k]) / 5 for k in counts}
+    lat = host_ms(torch, lambda: eip4844.blob_to_kzg_commitment(blobs["dense1"], kzg), 5)
+    end_path("commit", before, 5)
     med = statistics.median(lat)
     print(f"setup (host setup load + tables on the card): {setup_s:.3f} s", flush=True)
     print(f"commit latency: median {med:.3f} ms over 5 (min {min(lat):.3f}, max {max(lat):.3f}); "
           f"{1e3 / med:.3f} commits/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
-    print(f"launches on the main path (setup + 9 commits): {json.dumps(counts)}", flush=True)
-    print(f"launches per commit: {json.dumps(per_commit)}", flush=True)
-    check(all(v > 0 for v in counts.values()), f"a kernel never launched: {counts}")
-    profile_commit(torch, lambda: eip4844.blob_to_kzg_commitment(blobs["dense1"], kzg))
 
-    # ---- 3. every kernel against its plain version at the path's shapes --------
+    # b. online commit: GLV online MSM, window combine, same bytes
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    t0 = time.perf_counter()
+    kzo = get_kzg("cuda", precompute=False)
+    torch.cuda.synchronize()
+    online_setup_s = time.perf_counter() - t0
+    for name, blob in blobs.items():
+        got = eip4844.blob_to_kzg_commitment(blob, kzo)
+        check(got == expected[name], f"online {name} blob: commitment "
+                                     f"{got.hex() if got else got} != expected "
+                                     f"{expected[name].hex()}")
+    before = build.launch_counts()
+    lat = host_ms(torch, lambda: eip4844.blob_to_kzg_commitment(blobs["dense1"], kzo), 5)
+    end_path("online commit", before, 5)
+    med = statistics.median(lat)
+    print(f"online commit (precompute=False): zero, sparse, golden blobs match; setup "
+          f"{online_setup_s:.3f} s; latency median {med:.3f} ms over 5 (min {min(lat):.3f}, "
+          f"max {max(lat):.3f}); {1e3 / med:.3f} commits/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+
+    # c. batched commit of 16 blobs against the fixed-base single commits
+    seeded = [dense_blob(seed, r) for seed in range(101, 113)]
+    batch = list(blobs.values()) + seeded
+    want = list(expected.values()) + [eip4844.blob_to_kzg_commitment(b, kzg) for b in seeded]
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    got = eip4844.blob_to_kzg_commitment_batch(batch, kzg)
+    check(got == want, "batched commit: "
+          f"{[i for i, (a, b) in enumerate(zip(got or [], want)) if a != b]} differ "
+          "from the single commits")
+    before = build.launch_counts()
+    lat = host_ms(torch, lambda: eip4844.blob_to_kzg_commitment_batch(batch, kzg), 3)
+    end_path("batch 16", before, 3)
+    med = statistics.median(lat)
+    print(f"batched commit of 16 (zero, sparse, 2 golden, 12 seeded): each equals its "
+          f"fixed-base single commit; median {med:.3f} ms over 3 (min {min(lat):.3f}, "
+          f"max {max(lat):.3f}); {16e3 / med:.3f} blobs/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+
+    # d. online MSM at N = 2^16 over table rows, cross-checked by the
+    # fixed-base commit of the folded scalars
+    tabx, taby = kzg._pm._tables
+    n16 = 1 << 16
+    bases = (tabx[:n16], taby[:n16])
+    krng = np.random.default_rng(65536)
+    ks = [int.from_bytes(krng.bytes(32), "big") % r for _ in range(n16)]
+    k16 = ctx.scalars_to_limbs(ks, dev)
+    folded = [sum(ks[4096 * j + i] << (12 * j) for j in range(16)) % r for i in range(4096)]
+    want16 = affine(kzg.commit(ctx.scalars_to_limbs(folded, dev)))
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    P16 = msm(g, bases, k16)
+    before = build.launch_counts()
+    lat = host_ms(torch, lambda: msm(g, bases, k16), 5)
+    end_path("msm 2^16", before, 5)
+    # the affine conversion of the check runs outside the counted window
+    check(affine(P16) == want16, "msm 2^16 differs from the fixed-base cross-check")
+    med = statistics.median(lat)
+    print(f"online MSM N = 65536 (GLV, 255-bit scalars): equals the fixed-base cross-check; "
+          f"median {med:.3f} ms over 5 (min {min(lat):.3f}, max {max(lat):.3f}); "
+          f"{1e3 / med:.3f} ops/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+
+    for name in PATH_KERNELS:
+        print(f"launches per call, {name}: {json.dumps(per_call[name])}", flush=True)
+    total = {k: sum(c[k] for c in path_counts.values()) for k in build.KERNELS}
+    check(all(v > 0 for v in total.values()), f"a kernel never launched: {total}")
+
+    names = tuple(build.KERNELS)
+    profile_call(torch, names, "commit",
+                 lambda: eip4844.blob_to_kzg_commitment(blobs["dense1"], kzg))
+    profile_call(torch, names, "online commit",
+                 lambda: eip4844.blob_to_kzg_commitment(blobs["dense1"], kzo))
+    profile_call(torch, names, "batch of 16",
+                 lambda: eip4844.blob_to_kzg_commitment_batch(batch, kzg))
+    profile_call(torch, names, "msm 2^16", lambda: msm(g, bases, k16))
+
+    # ---- 3. every kernel against its plain version at the paths' shapes --------
     report = {}
 
-    def record(name, got, ref, kernel_fn, plain_fn, nbytes, nmuls, reps):
-        same(got, ref, name)
+    def record(name, got, ref, kernel_fn, plain_fn, nbytes, nmuls, reps, label=None,
+               keep=True):
+        label = label or name
+        same(got, ref, label)
         ms = cuda_ms(torch, kernel_fn, reps)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -315,26 +479,24 @@ def main():
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         bms, by = bound(nbytes, nmuls)
-        report[name] = dict(max_abs_err=max_abs_err(lb, got, ref), ms=ms, plain_ms=plain_ms,
-                            bound_ms=bms, bound_by=by)
-        print(f"check {name}: exact; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-              f"bound {bms:.4f} ms ({by})", flush=True)
+        if keep:
+            report[name] = dict(max_abs_err=max_abs_err(lb, got, ref), ms=ms,
+                                plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        print(f"check {label}: exact; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bms:.6f} ms ({by})", flush=True)
 
-    tabx, taby = kzg._pm._tables
     poly, _ = eip4844.blob_to_polynomial(blobs["dense1"])
     digits = _signed_digits(lb.to_tensor(poly, dev), kzg._pm.c, kzg._pm.W).reshape(1, -1)
     fs = msm_gpu._flush_stream(F, (tabx, taby), digits, kzg._pm.c)
-    K, M, nb = fs.K, fs.M, fs.nb
 
-    # K1 at the main path's widths: the setup's to_affine multiplies all
-    # (W-1)*4096 shifted table points (its inversion chains run 1/32 as
-    # wide), the export's to_affine one point. Inputs: the table itself,
-    # with 0, 1 and p-1 lanes.
+    # K1 at the paths' widths: the setup's to_affine multiplies all (W-1)*4096
+    # shifted table points, the exports one point and 16. Inputs: the table
+    # itself, with 0, 1 and p-1 lanes.
     n1 = tabx.shape[0] - 4096
     a, b = tabx[4096:].clone(), taby[4096:].clone()
     a[0], b[1] = 0, F.encode(1, dev)
     a[2] = b[2] = F.encode(F.p_int - 1, dev)
-    for n in (1, n1 // 32):
+    for n in (1, 16):
         same((mont_mul(a[:n], b[:n], F),), (mont_mul_plain(a[:n], b[:n], F),),
              f"mont_mul n={n}")
     record("mont_mul", (mont_mul(a, b, F),), (mont_mul_plain(a, b, F),),
@@ -355,60 +517,85 @@ def main():
          planar(ec_double(F, mul_plain, ec_double(F, mul_plain, std(one_lane)))),
          "ec_double_k k=2")
 
-    # K4 on the commit's stream, lanes 0-1 rebuilt: one run of [P, -P, Q, Q, ...]
-    # (infinity, then a fresh point, then a doubling) and a padding lane
-    keys, st = fs.skT.clone(), fs.st.clone()
-    keys[:, 0] = keys[0, 0]
-    st[1, :NL, 0], st[1, NL:, 0] = st[0, :NL, 0], F.neg(st[0, NL:, 0][None])[0]
-    st[3, :, 0] = st[2, :, 0]
-    keys[:, 1] = nb + 1
-    st[:, :, 1] = st[0, :, 2][None]
-    run_same = (keys[1:] == keys[:-1]).sum().item()
-    record("flush_scan", pec.flush_scan(keys, st), pec._flush_scan_plain(keys, st),
-           lambda: pec.flush_scan(keys, st), lambda: pec._flush_scan_plain(keys, st),
-           K * M * (4 + 2 * FE_BYTES + 3 * FE_BYTES), MULS["madd"] * run_same, reps=5)
+    def scan_checks(fs, n_pts, c, W, tag, keep):
+        """K4, K5 and K6 against their plain versions on one path's stream:
+        the flush scan over its sorted stream, the first merge scan over the
+        compacted flush, bucket_reduce over its bucket planes. Returns the
+        bucket planes and T."""
+        K, M, nb = fs.K, fs.M, fs.nb
+        # K4, lanes 0-1 rebuilt: one run of [P, -P, Q, Q, ...] (infinity,
+        # then a fresh point, then a doubling) and a padding lane
+        keys, st = fs.skT.clone(), fs.st.clone()
+        keys[:, 0] = keys[0, 0]
+        st[1, :NL, 0], st[1, NL:, 0] = st[0, :NL, 0], F.neg(st[0, NL:, 0][None])[0]
+        st[3, :, 0] = st[2, :, 0]
+        keys[:, 1] = nb + 1
+        st[:, :, 1] = st[0, :, 2][None]
+        run_same = (keys[1:] == keys[:-1]).sum().item()
+        record("flush_scan", pec.flush_scan(keys, st), pec._flush_scan_plain(keys, st),
+               lambda: pec.flush_scan(keys, st), lambda: pec._flush_scan_plain(keys, st),
+               K * M * (4 + 2 * FE_BYTES + 3 * FE_BYTES), MULS["madd"] * run_same, reps=5,
+               label=f"flush_scan {tag} K={K} M={M}", keep=keep)
 
-    # K5 on the commit's first merge input; lane 0: [P, P], lane 1: [P, -P],
-    # lane 2: [inf, P] under one key
-    ex, ey, ez = pec.flush_scan(fs.skT, fs.st)
-    kT, xT, yT, zT, M2 = msm_gpu._compact_boundaries(pec, fs.sk, fs.skT, (ex, ey, ez),
-                                                     K, M, nb, fs.H, 32)
-    kT, xT, yT, zT = (v.clone() for v in (kT, xT, yT, zT))
-    for lane in (0, 1, 2):
-        kT[:2, lane] = 7
-        for v in (xT, yT, zT):
-            v[1, :, lane] = v[0, :, lane]
-    yT[1, :, 1] = F.neg(yT[1, :, 1][None])[0]
-    zT[0, :, 2] = 0
-    both = ((kT[1:] == kT[:-1]) & (kT[1:] > 0)).sum().item()
-    record("merge_scan", pec.merge_scan(kT, xT, yT, zT), pec._merge_scan_plain(kT, xT, yT, zT),
-           lambda: pec.merge_scan(kT, xT, yT, zT), lambda: pec._merge_scan_plain(kT, xT, yT, zT),
-           kT.numel() * (4 + 6 * FE_BYTES), MULS["add"] * both, reps=10)
+        # K5 on the first merge input; lane 0: [P, P], lane 1: [P, -P],
+        # lane 2: [inf, P] under one key
+        ex, ey, ez = pec.flush_scan(fs.skT, fs.st)
+        kT, xT, yT, zT, M2 = msm_gpu._compact_boundaries(pec, fs.sk, fs.skT, (ex, ey, ez),
+                                                         K, M, nb, fs.H, 32)
+        kT, xT, yT, zT = (v.clone() for v in (kT, xT, yT, zT))
+        for lane in (0, 1, 2):
+            kT[:2, lane] = 7
+            for v in (xT, yT, zT):
+                v[1, :, lane] = v[0, :, lane]
+        yT[1, :, 1] = F.neg(yT[1, :, 1][None])[0]
+        zT[0, :, 2] = 0
+        both = ((kT[1:] == kT[:-1]) & (kT[1:] > 0)).sum().item()
+        record("merge_scan", pec.merge_scan(kT, xT, yT, zT),
+               pec._merge_scan_plain(kT, xT, yT, zT),
+               lambda: pec.merge_scan(kT, xT, yT, zT),
+               lambda: pec._merge_scan_plain(kT, xT, yT, zT),
+               kT.numel() * (4 + 6 * FE_BYTES), MULS["add"] * both, reps=10,
+               label=f"merge_scan {tag} K2=32 M2={M2}", keep=keep)
 
-    # K6 on the commit's bucket planes; lane 0: B1 = B0, lane 1: B1 = -B0,
-    # lane 2: B2 = infinity
-    e2 = pec.merge_scan(kT, xT, yT, zT)
-    rounds = msm_gpu._cdiv(msm_gpu._cdiv(tabx.shape[0], K) + 1, 32) + 1
-    ck, cx, cy, cz = msm_gpu._merge_rounds(pec, kT, *e2, 32, M2, nb, fs.H, rounds, 32)
-    cx, cy, cz = msm_gpu._tree_rounds(pec, ck, cx, cy, cz)
-    planes, T, C = msm_gpu._bucket_planes(ck, cx, cy, cz, kzg._pm.c, 1, fs.H)
-    bx, by, bz = (v.clone() for v in planes)
-    for v in (bx, by, bz):
-        v[1, :, 0] = v[0, :, 0]
-        v[1, :, 1] = v[0, :, 1]
-    by[1, :, 1] = F.neg(by[1, :, 1][None])[0]
-    bz[2, :, 2] = 0
-    # adds with both operands finite (an add with infinity is a select):
-    # step t adds run into wsum, then bucket t into run
-    fin = ~F.is_zero(bz.transpose(1, 2))                           # (T, C)
-    no = torch.zeros_like(fin[:1])
-    run_fin = torch.cat([no, fin.cumsum(0)[:-1] > 0])               # run before step t
-    wsum_fin = torch.cat([no, run_fin.cumsum(0)[:-1] > 0])
-    n_adds = ((run_fin & fin).sum() + (wsum_fin & run_fin).sum()).item()
-    record("bucket_reduce", sum(pec.bucket_reduce(bx, by, bz, T), ()),
-           sum(pec._bucket_reduce_plain(bx, by, bz, T), ()),
-           lambda: pec.bucket_reduce(bx, by, bz, T), lambda: pec._bucket_reduce_plain(bx, by, bz, T),
-           C * (3 * T + 6) * FE_BYTES, MULS["add"] * n_adds, reps=20)
+        # K6 on the bucket planes; lane 0: B1 = B0, lane 1: B1 = -B0,
+        # lane 2: B2 = infinity
+        e2 = pec.merge_scan(kT, xT, yT, zT)
+        rounds = msm_gpu._cdiv(msm_gpu._cdiv(n_pts, K) + 1, 32) + 1
+        ck, cx, cy, cz = msm_gpu._merge_rounds(pec, kT, *e2, 32, M2, nb, fs.H, rounds, 32)
+        cx, cy, cz = msm_gpu._tree_rounds(pec, ck, cx, cy, cz)
+        planes, T, C = msm_gpu._bucket_planes(ck, cx, cy, cz, c, W, fs.H)
+        bx, by, bz = (v.clone() for v in planes)
+        for v in (bx, by, bz):
+            v[1, :, 0] = v[0, :, 0]
+            v[1, :, 1] = v[0, :, 1]
+        by[1, :, 1] = F.neg(by[1, :, 1][None])[0]
+        bz[2, :, 2] = 0
+        # adds with both operands finite (an add with infinity is a select):
+        # step t adds run into wsum, then bucket t into run
+        fin = ~F.is_zero(bz.transpose(1, 2))                           # (T, W*C)
+        no = torch.zeros_like(fin[:1])
+        run_fin = torch.cat([no, fin.cumsum(0)[:-1] > 0])               # run before step t
+        wsum_fin = torch.cat([no, run_fin.cumsum(0)[:-1] > 0])
+        n_adds = ((run_fin & fin).sum() + (wsum_fin & run_fin).sum()).item()
+        record("bucket_reduce", sum(pec.bucket_reduce(bx, by, bz, T), ()),
+               sum(pec._bucket_reduce_plain(bx, by, bz, T), ()),
+               lambda: pec.bucket_reduce(bx, by, bz, T),
+               lambda: pec._bucket_reduce_plain(bx, by, bz, T),
+               W * C * (3 * T + 6) * FE_BYTES, MULS["add"] * n_adds, reps=20,
+               label=f"bucket_reduce {tag} T={T} lanes={W * C}", keep=keep)
+        return (bx, by, bz), T
+
+    # the fixed-base commit's stream (its numbers go into the kernels' line),
+    # then the online commit's: the GLV split of the setup points, c = 9, W = 15
+    (bx, by, bz), T = scan_checks(fs, tabx.shape[0], kzg._pm.c, 1, "commit", True)
+    glv_pts, glv_k, glv_bits = _apply_glv(g, _glv_for_group(g.name), kzo.s.g1_lagrange_brp,
+                                          lb.to_tensor(poly, dev))
+    n_o = glv_pts[0].shape[0]
+    c_o = msm_gpu.best_window_tpu(n_o, glv_bits)
+    W_o = msm_gpu._cdiv(glv_bits + 1, c_o)
+    fso = msm_gpu._flush_stream(F, glv_pts, _signed_digits(glv_k, c_o, W_o), c_o)
+    scan_checks(fso, n_o, c_o, W_o, f"online commit c={c_o} W={W_o}", False)
+    C = bx.shape[2]
 
     # K3 add at the tail's width (C = 512 chunk lanes), with P == Q, P == -Q,
     # infinity on either side, and P == Q under another Z
@@ -436,11 +623,52 @@ def main():
     check(bool(inf_lanes[1]) and bool(inf_lanes[4]) and not bool(inf_lanes[5]),
           "ec_add degenerate lanes")
 
+    # K7 at the online commit's (NL, 15), c = 9 and the 2^16 MSM's (NL, 11),
+    # c = 12; inputs: Jacobian table points (Z != 1)
+    for W7, c7, keep in ((15, 9, True), (11, 12, False)):
+        P7 = planar(g.double(g.from_affine((tabx[:W7], taby[:W7]))))
+        record("scaled_doubles", pec.scaled_doubles(P7, c7, W7),
+               pec._scaled_doubles_plain(P7, c7, W7),
+               lambda: pec.scaled_doubles(P7, c7, W7),
+               lambda: pec._scaled_doubles_plain(P7, c7, W7),
+               6 * W7 * FE_BYTES, MULS["double"] * c7 * W7 * (W7 - 1) // 2, reps=5,
+               label=f"scaled_doubles W={W7} c={c7}", keep=keep)
+
+    # K8, K10 at the setup's to_affine: 90,112 Z values padded with ones to
+    # 98,304 = 32 chains x 3,072 lanes (here the table's x coordinates);
+    # K9 at 512 lanes (the setup's second level), 16 (the batch export), 1
+    # (every commit's export)
+    aff = F.affine
+    C8, blk = 32, 512
+    m8 = msm_gpu._rup(n1, C8 * blk)
+    xs = torch.cat([tabx[4096:], F.broadcast_one((m8 - n1,), dev)])
+    Mw = m8 // C8
+    dC = xs.T.reshape(NL, C8, Mw).transpose(0, 1).contiguous()
+    record("chain_fwd", aff.chain_fwd(dC), aff._chain_fwd_plain(dC),
+           lambda: aff.chain_fwd(dC), lambda: aff._chain_fwd_plain(dC),
+           (2 * C8 + 1) * Mw * FE_BYTES, C8 * Mw, reps=20,
+           label=f"chain_fwd C={C8} Mw={Mw}")
+    pe, bp = aff.chain_fwd(dC)
+    bpinv = aff.batch_inv_packed(bp)
+    record("chain_bwd_inv", (aff.chain_bwd_inv(pe, dC, bpinv),),
+           (aff._chain_bwd_inv_plain(pe, dC, bpinv),),
+           lambda: aff.chain_bwd_inv(pe, dC, bpinv),
+           lambda: aff._chain_bwd_inv_plain(pe, dC, bpinv),
+           (3 * C8 + 1) * Mw * FE_BYTES, 2 * C8 * Mw, reps=20,
+           label=f"chain_bwd_inv C={C8} Mw={Mw}")
+    fermat_muls = aff.exp_bits + bin(aff.exp_int).count("1")
+    for n9 in (512, 16, 1):
+        x9 = bp[:, :n9].contiguous()
+        record("fermat_inv", (aff.fermat_inv(x9),), (aff._fermat_inv_plain(x9),),
+               lambda: aff.fermat_inv(x9), lambda: aff._fermat_inv_plain(x9),
+               2 * n9 * FE_BYTES, fermat_muls * n9, reps=10,
+               label=f"fermat_inv n={n9}", keep=n9 == 512)
+
     kernels = []
     for name in build.KERNELS:
         src, rep = REPLACES[name]
         kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                            launches=counts[name], library_ms=None, **report[name]))
+                            launches=total[name], library_ms=None, **report[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,7 @@
 //   K4  PallasEC.flush_scan   (ctt_flush_scan)
 //   K5  PallasEC.merge_scan   (ctt_merge_scan)
 //   K6  PallasEC.bucket_reduce (ctt_bucket_reduce)
+//   K7  PallasEC.scaled_doubles (ctt_scaled_doubles)
 // All inline the field and point code of ec.cuh (K2, the reference's _KF).
 //
 // Layout is the reference's planar one: a coordinate array is (L, n) with
@@ -152,6 +153,26 @@ __global__ void bucket_reduce_kernel(MD md, const uint32_t* bx, const uint32_t* 
   store(wz, C, c, wsum.Z);
 }
 
+// K7, the online MSM's window combine: lane w of (NL, W) becomes
+// 2^(c*w) * P_w. The TPU kernel runs (W-1)*c grid steps over all lanes and
+// masks each step to the lanes still owing a doubling (t < c*w); here each
+// thread runs its own lane's c*w doublings, which is the same result without
+// the masking. It is latency-bound: W <= 16 threads, one block, each a chain
+// of up to (W-1)*c dependent doublings (7 multiplies each), against an
+// operations bound set by the longest lane's share. Infinity (Z = 0) stays
+// infinity and Y = 0 becomes infinity, as ec_double does.
+__global__ void scaled_doubles_kernel(MD md, const uint32_t* x, const uint32_t* y,
+                                      const uint32_t* z, uint32_t* ox, uint32_t* oy,
+                                      uint32_t* oz, int W, int c) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  J P{load(x, W, w), load(y, W, w), load(z, W, w)};
+  for (int s = 0; s < c * w; ++s) P = ec_double<NL>(P, md);
+  store(ox, W, w, P.X);
+  store(oy, W, w, P.Y);
+  store(oz, W, w, P.Z);
+}
+
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
@@ -209,5 +230,15 @@ extern "C" int ctt_bucket_reduce(const uint32_t* mod_words, const void* bx,
         mod_from_words<NL>(mod_words), (const uint32_t*)bx, (const uint32_t*)by,
         (const uint32_t*)bz, (uint32_t*)rx, (uint32_t*)ry, (uint32_t*)rz,
         (uint32_t*)wx, (uint32_t*)wy, (uint32_t*)wz, T, C);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ctt_scaled_doubles(const uint32_t* mod_words, const void* x, const void* y,
+                                  const void* z, void* ox, void* oy, void* oz, int W,
+                                  int c, void* stream) {
+  if (W > 0)
+    scaled_doubles_kernel<<<blocks(W), THREADS, 0, (cudaStream_t)stream>>>(
+        mod_from_words<NL>(mod_words), (const uint32_t*)x, (const uint32_t*)y,
+        (const uint32_t*)z, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, W, c);
   return (int)cudaGetLastError();
 }

@@ -7,9 +7,6 @@ tensors each method launches its kernel from ``csrc/ec_kernels.cu``; on CPU
 tensors it runs the plain version below, which repeats the kernel's
 formulas with torch ops (``ec_double``, ``ec_madd``, ``ec_add``: the
 reference's ``_KF`` group law, selects in the same order).
-
-``scaled_doubles`` (K7, the window combine) is not ported yet: only its
-one-window case, which launches nothing, is here.
 """
 
 from __future__ import annotations
@@ -19,7 +16,7 @@ import ctypes
 import torch
 
 from .. import build
-from .cuda_field import mont_mul_plain
+from .cuda_field import _on_cuda, mont_mul_plain
 
 # ---------------------------------------------------------------------------
 # Group law on standard-layout (n, NL) coordinates (a = 0, Jacobian)
@@ -118,22 +115,6 @@ def ec_add(F, mul, P, Q):
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-
-
-def _on_cuda(*ts) -> bool:
-    """True if every tensor is on one CUDA device, False if all on the CPU."""
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"operands on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    for t in ts:
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise TypeError("kernels take contiguous int32 limb tensors")
-    return True
 
 
 def _std(v):
@@ -302,15 +283,30 @@ class CudaEC:
             run = ec_add(F, self._mul_plain, run, B)
         return tuple(map(_planar, run)), tuple(map(_planar, wsum))
 
-    # -- K7 (not ported): window combine ------------------------------------------
+    # -- K7: window combine ---------------------------------------------------------
 
     def scaled_doubles(self, P, c: int, Wn: int):
-        """Lane w of (NL, Wn) becomes 2^(c*w) P_w. Only Wn = 1 (no
-        doubling, nothing launched) is supported in this slice."""
+        """Lane w of the (NL, Wn) input becomes 2^(c*w) P_w. Returns P itself
+        when no lane owes a doubling (Wn = 1 or c = 0)."""
+        self._check_coords(P)
         if P[0].shape[1] != Wn:
-            raise ValueError("scaled_doubles: lane count mismatch")
+            raise ValueError(f"scaled_doubles: {P[0].shape[1]} lanes for Wn={Wn}")
         if (Wn - 1) * c == 0:
             return P
-        raise NotImplementedError(
-            "scaled_doubles (K7, the online MSM's window combine) is not ported "
-            "yet: ROADMAP.md slice 2")
+        if not _on_cuda(*P):
+            return self._scaled_doubles_plain(P, c, Wn)
+        out = tuple(torch.empty_like(P[0]) for _ in range(3))
+        build.KERNELS["scaled_doubles"](P[0].device, self._mod,
+                                        *map(build.ptr, (*P, *out)), Wn, c)
+        return out
+
+    def _scaled_doubles_plain(self, P, c, Wn):
+        """The reference's masked ladder: (Wn-1)*c doubling steps, step t
+        applied to the lanes that still owe one (t < c*w), which are the
+        lanes from t//c + 1 on."""
+        acc = tuple(map(_std, P))
+        for t in range((Wn - 1) * c):
+            lo = t // c + 1
+            d = ec_double(self.F, self._mul_plain, tuple(v[lo:] for v in acc))
+            acc = tuple(torch.cat([v[:lo], dv]) for v, dv in zip(acc, d))
+        return tuple(map(_planar, acc))

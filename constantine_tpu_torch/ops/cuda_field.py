@@ -1,8 +1,13 @@
-"""K1: batched Montgomery multiply -- kernel wrapper and plain version.
+"""Field kernels -- wrappers and plain versions.
 
-Counterpart of ``constantine_tpu/ops/pallas_field.py`` (``PallasMontMul``).
-``mont_mul`` launches ``csrc/field_kernels.cu:ctt_mont_mul`` on CUDA
-tensors and runs ``mont_mul_plain`` on CPU tensors.
+K1, the batched Montgomery multiply: counterpart of
+``constantine_tpu/ops/pallas_field.py`` (``PallasMontMul``). ``mont_mul``
+launches ``csrc/field_kernels.cu:ctt_mont_mul`` on CUDA tensors and runs
+``mont_mul_plain`` on CPU tensors.
+
+K8-K10, batched inversion: ``CudaAffine``, counterpart of
+``constantine_tpu/ops/pallas_ec.py`` (``PallasAffine``), for 12-limb Fp and
+8-limb Fr.
 """
 
 from __future__ import annotations
@@ -13,6 +18,22 @@ import torch
 
 from .. import build
 from . import limbs as lb
+
+
+def _on_cuda(*ts) -> bool:
+    """True if every tensor is on one CUDA device, False if all on the CPU."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for t in ts:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError("kernels take contiguous int32 limb tensors")
+    return True
 
 
 def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, F) -> torch.Tensor:
@@ -70,3 +91,128 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, F) -> torch.Tensor:
         a.device, F.NL, ctypes.c_void_p(F.mod_words.ctypes.data),
         build.ptr(a), build.ptr(b), build.ptr(out), n)
     return out
+
+
+class CudaAffine:
+    """K8-K10: batched inversion over a field F (Montgomery form in and out).
+
+    Planar layouts, the lane axis contiguous: chains (C, NL, Mw), lanes
+    (NL, Wd). On CUDA tensors each method launches its kernel; on CPU
+    tensors it runs the plain version beside it. No method handles 0 (a
+    zero zeroes its whole chain): Field.batch_inv masks zeros out first.
+    """
+
+    def __init__(self, F):
+        self.F = F
+        self.NL = F.NL
+        self._mod = ctypes.c_void_p(F.mod_words.ctypes.data)
+        e = F.p_int - 2                                   # Fermat: x^(p-2)
+        self.exp_int = e
+        self.exp_bits = e.bit_length()
+        self._exp_words = lb.int_to_limbs(e, F.NL)
+        self._exp = ctypes.c_void_p(self._exp_words.ctypes.data)
+
+    def _check(self, v, what):
+        if v.shape[-2] != self.NL:
+            raise ValueError(f"{what}: {tuple(v.shape)} is not planar over {self.NL} limbs")
+
+    def _mul_plain(self, a, b):
+        return mont_mul_plain(a, b, self.F)
+
+    def _one(self, n, device):
+        return self.F.broadcast_one((n,), device)          # (n, NL)
+
+    # -- K8 ---------------------------------------------------------------------
+
+    def chain_fwd(self, dC):
+        """dC (C, NL, Mw): chains down axis 0. Returns (pe (C, NL, Mw), the
+        exclusive prefix products d[0]..d[c-1], and bp (NL, Mw), each
+        chain's product)."""
+        self._check(dC, "chain_fwd")
+        C, NL, Mw = dC.shape
+        if not _on_cuda(dC):
+            return self._chain_fwd_plain(dC)
+        pe = torch.empty_like(dC)
+        bp = torch.empty((NL, Mw), dtype=dC.dtype, device=dC.device)
+        build.KERNELS["chain_fwd"](dC.device, NL, self._mod,
+                                   *map(build.ptr, (dC, pe, bp)), C, Mw)
+        return pe, bp
+
+    def _chain_fwd_plain(self, dC):
+        run = self._one(dC.shape[2], dC.device)
+        pe = []
+        for c in range(dC.shape[0]):
+            pe.append(run)
+            run = self._mul_plain(run, dC[c].T)
+        return torch.stack([p.T for p in pe]).contiguous(), run.T.contiguous()
+
+    # -- K9 ---------------------------------------------------------------------
+
+    def fermat_inv(self, x):
+        """x (NL, Wd) -> x^(p-2) per lane (the inverse; 0 gives 0)."""
+        self._check(x, "fermat_inv")
+        if not _on_cuda(x):
+            return self._fermat_inv_plain(x)
+        out = torch.empty_like(x)
+        build.KERNELS["fermat_inv"](x.device, self.NL, self._mod, self._exp, self.exp_bits,
+                                    build.ptr(x), build.ptr(out), x.shape[1])
+        return out
+
+    def _fermat_inv_plain(self, x):
+        base = x.T
+        acc = self._one(x.shape[1], x.device)
+        for b in range(self.exp_bits - 1, -1, -1):
+            acc = self._mul_plain(acc, acc)
+            if (self.exp_int >> b) & 1:
+                acc = self._mul_plain(acc, base)
+        return acc.T.contiguous()
+
+    # -- K10 --------------------------------------------------------------------
+
+    def chain_bwd_inv(self, pe, dC, bpinv):
+        """inv[c] = run * pe[c]; run *= d[c], c = C-1..0, run starting at
+        bpinv (NL, Mw). Returns inv (C, NL, Mw)."""
+        self._check(dC, "chain_bwd_inv")
+        C, NL, Mw = dC.shape
+        if pe.shape != dC.shape or bpinv.shape != (NL, Mw):
+            raise ValueError(f"chain_bwd_inv: {tuple(pe.shape)}, {tuple(dC.shape)}, "
+                             f"{tuple(bpinv.shape)}")
+        if not _on_cuda(pe, dC, bpinv):
+            return self._chain_bwd_inv_plain(pe, dC, bpinv)
+        inv = torch.empty_like(dC)
+        build.KERNELS["chain_bwd_inv"](dC.device, NL, self._mod,
+                                       *map(build.ptr, (pe, dC, bpinv, inv)), C, Mw)
+        return inv
+
+    def _chain_bwd_inv_plain(self, pe, dC, bpinv):
+        run = bpinv.T
+        inv = [None] * dC.shape[0]
+        for c in range(dC.shape[0] - 1, -1, -1):
+            inv[c] = self._mul_plain(run, pe[c].T).T
+            run = self._mul_plain(run, dC[c].T)
+        return torch.stack(inv).contiguous()
+
+    # -- composition ------------------------------------------------------------
+
+    def batch_inv_packed(self, x, C: int = 32, block: int = 512):
+        """Inverse of every lane of x (NL, m), none of them 0.
+
+        The reference's two-level recursion: up to 4 blocks of lanes go to
+        one Fermat launch; wider inputs are padded with ones to a multiple
+        of C*block, chained down C (Mw = m/C lanes), the Mw chain products
+        inverted the same way (recursively while Mw > 4 blocks), and
+        unwound. C and block are the reference's 32 and 512 by default.
+        """
+        self._check(x, "batch_inv_packed")
+        NL, m0 = x.shape
+        if m0 <= 4 * block:
+            return self.fermat_inv(x)
+        m = -(-m0 // (C * block)) * C * block
+        if m != m0:
+            x = torch.cat([x, self._one(m - m0, x.device).T], 1)
+        Mw = m // C
+        dC = x.reshape(NL, C, Mw).transpose(0, 1).contiguous()
+        pe, bp = self.chain_fwd(dC)
+        bpinv = self.batch_inv_packed(bp, C, block)
+        inv = self.chain_bwd_inv(pe, dC, bpinv)
+        return inv.transpose(0, 1).reshape(NL, m)[:, :m0].contiguous()

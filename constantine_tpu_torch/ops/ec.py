@@ -72,6 +72,11 @@ class ECGroup:
         X, Y, Z = P
         return (X, self.F.neg(Y), Z)
 
+    def aff_cneg(self, cond, xy):
+        """Conditional affine negation (for MSM signed digits)."""
+        x, y = xy
+        return (x, self.F.cselect(cond, self.F.neg(y), y))
+
     # -- group law ------------------------------------------------------------
 
     def double(self, P):

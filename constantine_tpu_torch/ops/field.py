@@ -4,17 +4,20 @@ Counterpart of ``constantine_tpu/ops/field.py`` (``Field``). Elements are
 int32 tensors (..., NL) of 32-bit limbs (see ``limbs.py``), canonical (< p),
 in the Montgomery domain with R = 2^(32*NL) -- the reference's R -- unless a
 method says otherwise. ``mul`` (and everything built on it) runs the K1
-kernel on CUDA tensors; add, sub and the rest are plain torch ops on either
-device, as they were XLA ops in the reference.
+kernel on CUDA tensors, and ``batch_inv`` the K8-K10 kernels; add, sub and
+the rest are plain torch ops on either device, as they were XLA ops in the
+reference.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from . import limbs as lb
-from .cuda_field import mont_mul
+from .cuda_field import CudaAffine, mont_mul
 
 
 class Field:
@@ -152,35 +155,23 @@ class Field:
         """Inverse by Fermat, a^(p-2); 0 maps to 0."""
         return self.pow_const(a, self.p_int - 2)
 
-    def batch_inv(self, a):
-        """Montgomery-trick batch inversion over the flattened batch axes:
-        chains of 32 products across lanes, one Fermat inversion of the
-        chain totals, then the backward unwind (3 muls per element). Zero
-        entries give zero."""
-        chain = 32
+    @functools.cached_property
+    def affine(self):
+        """The batched-inversion kernels K8-K10 over this field."""
+        return CudaAffine(self)
+
+    def batch_inv(self, a, C: int = 32, block: int = 512):
+        """Batch inversion over the flattened batch axes; zero entries give
+        zero (they are masked to one first, then back to zero). The lanes go
+        through CudaAffine.batch_inv_packed (chain kernels K8/K10 and the
+        Fermat kernel K9, or their plain versions on CPU tensors); C and
+        block are its chain length and block width."""
         batch_shape = a.shape[:-1]
         n = int(np.prod(batch_shape)) if batch_shape else 1
         flat = a.reshape(n, self.NL)
         zero_mask = lb.is_zero(flat)
-        one = self.broadcast_one((n,), a.device)
-        a_safe = lb.cselect(zero_mask, one, flat)
-        K = min(chain, n)
-        pad = (-n) % K
-        if pad:
-            a_safe = torch.cat([a_safe, self.broadcast_one((pad,), a.device)])
-        G = (n + pad) // K
-        x = a_safe.reshape(G, K, self.NL).transpose(0, 1)         # (K, G, NL)
-        run = self.broadcast_one((G,), a.device)
-        pre_exc = []
-        for i in range(K):                                        # forward
-            pre_exc.append(run)
-            run = self.mul(run, x[i])
-        state = self.inv(run)
-        invs = [None] * K
-        for i in range(K - 1, -1, -1):                            # unwind
-            invs[i] = self.mul(state, pre_exc[i])
-            state = self.mul(state, x[i])
-        out = torch.stack(invs).transpose(0, 1).reshape(n + pad, self.NL)[:n]
+        a_safe = lb.cselect(zero_mask, self.broadcast_one((n,), a.device), flat)
+        out = self.affine.batch_inv_packed(a_safe.T.contiguous(), C, block).T
         out = lb.cselect(zero_mask, torch.zeros_like(out), out)
         return out.reshape(a.shape)
 

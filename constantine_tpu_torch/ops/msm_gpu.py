@@ -1,4 +1,4 @@
-"""MSM pipeline over the point kernels (Pippenger, fixed-base slice).
+"""MSM pipeline over the point kernels (Pippenger).
 
 Counterpart of ``constantine_tpu/ops/msm_tpu.py`` with the same stages and
 the same geometry (block = 512 lanes, the K0/M/K flush formulas, K2 = 32,
@@ -9,12 +9,13 @@ the bucket-reduce T), so each stage is bit-exact against the reference:
 2. flush scan (K4): lanes sweep K-long chunks, one mixed add per entry;
 3. compaction of the run ends (``_compact_boundaries``), then merge scans
    (K5) until every bucket has at most 4 partials (``_merge_rounds``);
-4. two masked tree rounds, the weighted bucket reduction (K6) and log-depth
-   chunk trees of K3 adds (``_msm_tail``).
+4. two masked tree rounds, the weighted bucket reduction (K6), log-depth
+   chunk trees of K3 adds, then the window combine: K7 ``scaled_doubles``
+   and a lane tree of K3 adds (``_msm_tail``), or per-row sums for
+   independent MSMs sharing one table (``combine=False``).
 
 Sorts, prefix sums, gathers and scatters are torch ops, as they were XLA ops
-in the reference. The window combine (K7 ``scaled_doubles``) is not ported
-yet, so only one effective window (the fixed-base commit) is supported.
+in the reference.
 """
 
 from __future__ import annotations
@@ -200,20 +201,33 @@ def _merge_rounds(pec, keysP, ex, ey, ez, curK, curM, nb, H, r, K2=32):
     return ck, cx, cy, cz
 
 
-def msm_gpu(group, points_aff, digits, c: int):
-    """Fixed-base MSM over the kernel pipeline: sum_i d_i P_i for one row of
-    signed c-bit digits (1, N), as PrecomputedMSM calls it. Same contract as
-    the reference's msm_tpu on that path: a Jacobian point, each coordinate
-    (NL,). points_aff: (x, y) (N, NL) affine Montgomery coordinates.
+def msm_gpu(group, points_aff, scalars=None, c: int = None, scalar_bits: int = None,
+            digits=None, combine: bool = True):
+    """MSM over the kernel pipeline, the reference's msm_tpu contract.
+
+    points_aff: (x, y) (N, NL) affine Montgomery coordinates. Either scalars
+    (N, NL_r) canonical limbs (window bits c from best_window_tpu unless
+    given, W = ceil((bits + 1) / c) windows, bits = scalar_bits or all the
+    limbs' bits), or digits (W, N) signed c-bit digits with c given.
+    Returns a Jacobian point, each coordinate (NL,); with combine=False the
+    W per-row sums instead, each coordinate (W, NL): the rows are then
+    independent MSMs over one table (PrecomputedMSM.batch).
     """
     F = group.F
     pec = group.pec
-    W, N = digits.shape
+    if digits is not None:
+        if c is None:
+            raise ValueError("msm_gpu with digits= needs the window bits c")
+        W, N = digits.shape
+    else:
+        from .msm import _signed_digits
+        N = scalars.shape[0]
+        bits = scalar_bits or scalars.shape[1] * 32
+        if c is None:
+            c = best_window_tpu(N, bits)
+        W = _cdiv(bits + 1, c)
+        digits = _signed_digits(scalars, c, W)
     H = 1 << (c - 1)
-    if W > 1:
-        raise NotImplementedError(
-            "several windows need the window combine (K7 scaled_doubles), "
-            "which is not ported yet: ROADMAP.md slice 2")
     fs = _flush_stream(F, points_aff, digits, c)
     ex, ey, ez = pec.flush_scan(fs.skT, fs.st)
     K2 = 32
@@ -222,7 +236,7 @@ def msm_gpu(group, points_aff, digits, c: int):
     e2x, e2y, e2z = pec.merge_scan(kT, xT, yT, zT)
     r = _cdiv(_cdiv(N, fs.K) + 1, K2) + 1
     ck, cx, cy, cz = _merge_rounds(pec, kT, e2x, e2y, e2z, K2, M2, fs.nb, fs.H, r, K2)
-    return _msm_tail(group, pec, ck, cx, cy, cz, c, W, H)
+    return _msm_tail(group, pec, ck, cx, cy, cz, c, W, H, combine)
 
 
 class FlushStream(NamedTuple):
@@ -312,9 +326,10 @@ def _bucket_planes(ck, cx, cy, cz, c, W, H):
     return planes, T, C
 
 
-def _msm_tail(group, pec, ck, cx, cy, cz, c, W, H):
+def _msm_tail(group, pec, ck, cx, cy, cz, c, W, H, combine):
     """Tree rounds, scatter into the bucket-reduce layout, two-level bucket
-    reduction, window sums."""
+    reduction, window sums, then the window combine (or, with combine=False,
+    the per-row sums in standard layout (W, NL))."""
     NL = group.F.NL
     dev = ck.device
     cx, cy, cz = _tree_rounds(pec, ck, cx, cy, cz)
@@ -361,6 +376,8 @@ def _msm_tail(group, pec, ck, cx, cy, cz, c, W, H):
     tA = pec.double_k(lane0(A), logT)                   # (NL, W)
     t1 = pec.add(tA, lane0(WS))
     wsum = pec.add(t1, lane0(S))                        # window sums
+    if not combine:
+        return tuple(v.T for v in wsum)
 
     dws = pec.scaled_doubles(wsum, c, W)                # lane w = 2^(cw) S_w
     total = _lane_tree_sum(pec, dws, W)

@@ -1,10 +1,10 @@
 """Precomputed fixed-base MSM (one shifted affine copy per window).
 
-Counterpart of ``constantine_tpu/ops/msm_precomp.py`` (``PrecomputedMSM``
-without ``.batch``). For fixed bases P_i, store [2^(c*j)] P_i for every
-window j, so sum_i k_i P_i = sum_{i,j} d_ij [2^(c*j)] P_i is ONE bucket
-accumulation over W*N points with a single effective window: no window
-combine.
+Counterpart of ``constantine_tpu/ops/msm_precomp.py`` (``PrecomputedMSM``).
+For fixed bases P_i, store [2^(c*j)] P_i for every window j, so sum_i k_i
+P_i = sum_{i,j} d_ij [2^(c*j)] P_i is ONE bucket accumulation over W*N
+points with a single effective window: no window combine. ``batch`` runs B
+such MSMs in one pipeline, one digit row each.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from .msm import _signed_digits, msm
+from .msm_gpu import msm_gpu
 
 
 def best_precomp_window(n: int, bits: int = 255) -> int:
@@ -69,3 +70,15 @@ class PrecomputedMSM:
         digits = _signed_digits(scalars, self.c, self.W)       # (W, N)
         flat = digits.reshape(1, -1)                           # 1 window, W*N
         return msm(self.group, self._tables, None, c=self.c, digits=flat)
+
+    def batch(self, scalars):
+        """B independent MSMs over the fixed bases in ONE pipeline.
+
+        scalars: (B, N, NL_r) canonical limbs -> Jacobian points, each
+        coordinate (B, NL). The B digit rows ride the pipeline's window axis
+        with combine=False: the per-row sums are the results.
+        """
+        B, N, NLr = scalars.shape
+        digits = _signed_digits(scalars.reshape(B * N, NLr), self.c, self.W)   # (W, B*N)
+        rows = digits.reshape(self.W, B, N).transpose(0, 1).reshape(B, self.W * N)
+        return msm_gpu(self.group, self._tables, None, c=self.c, digits=rows, combine=False)

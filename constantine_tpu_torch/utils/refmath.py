@@ -14,12 +14,30 @@ def inv_mod(a: int, m: int) -> int:
 
 
 def sqrt_mod(a: int, p: int):
-    """A square root of a mod p, or None for a non-residue (p = 3 mod 4)."""
-    if p % 4 != 3:
-        raise ValueError("sqrt_mod needs p = 3 mod 4")
+    """A square root of a mod p (Tonelli-Shanks), or None for a non-residue."""
     a %= p
-    y = pow(a, (p + 1) // 4, p)
-    return y if y * y % p == a else None
+    if a == 0:
+        return 0
+    if pow(a, (p - 1) // 2, p) != 1:
+        return None
+    if p % 4 == 3:
+        return pow(a, (p + 1) // 4, p)
+    s, q = 0, p - 1
+    while q % 2 == 0:
+        q //= 2
+        s += 1
+    z = 2
+    while pow(z, (p - 1) // 2, p) != p - 1:
+        z += 1
+    m, c, t, r = s, pow(z, q, p), pow(a, q, p), pow(a, (q + 1) // 2, p)
+    while t != 1:
+        i, tt = 0, t
+        while tt != 1:
+            tt = tt * tt % p
+            i += 1
+        b = pow(c, 1 << (m - i - 1), p)
+        m, c, t, r = i, b * b % p, t * b * b % p, r * b % p
+    return r
 
 
 def ec_add(P, Q, a: int, p: int):

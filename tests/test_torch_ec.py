@@ -242,10 +242,94 @@ def test_kernel_wrappers_reject_bad_input(env):
         pec.add((z, z, z), (z, z, z[:, :3]))
     with pytest.raises(ValueError):
         pec.flush_scan(torch.zeros((8, 4), dtype=torch.int32), torch.zeros((8, 12, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        pec.scaled_doubles((z[:, :2],) * 3, 12, 2)
+    with pytest.raises(ValueError):
+        pec.scaled_doubles((z[:, :2],) * 3, 12, 3)
     one_window = (z[:, :1],) * 3
     assert pec.scaled_doubles(one_window, 12, 1) is one_window
+    F = ctx.fp
+    with pytest.raises(ValueError):
+        F.affine.fermat_inv(torch.zeros((8, 4), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        F.affine.chain_bwd_inv(*(torch.zeros((2, 12, 4), dtype=torch.int32),) * 2,
+                               torch.zeros((12, 3), dtype=torch.int32))
+
+
+def test_scaled_doubles_plain_matches_reference_and_host(env):
+    """K7 at W = 4, c = 3: lane w becomes [2^(3w)]P_w; lane 1 is infinity and
+    lane 3 has Y = 0 (off the curve: its first doubling gives Z = 0)."""
+    jctx, ctx, pts = env
+    g = jctx.g1
+    W, c = 4, 3
+    A = g.double(g.from_affine(_jaff(jctx, pts[:W])))              # Z != 1
+    A = tuple(np.array(v) for v in A)
+    A[2][1] = 0
+    A[1][3] = 0
+    acc = tuple(jnp.asarray(v) for v in A)
+    live_from = np.arange(W) * c
+    for t in range((W - 1) * c):                                  # the TPU's masked ladder
+        acc = g.select(jnp.asarray(t < live_from), g.double(acc), acc)
+    got = ctx.g1.pec.scaled_doubles(tuple(convert.from_reference(v).T.contiguous() for v in A),
+                                    c, W)
+    for r, v in zip(acc, got):
+        assert np.array_equal(convert.to_reference(v.T), np.asarray(r))
+    (x, y), inf = ctx.g1.to_affine(tuple(v.T for v in got))
+    assert inf.tolist() == [False, True, False, True]
+    for w in (0, 2):
+        exp = rm.ec_mul(2 << (c * w), pts[w], 0, ctx.p)             # [2^(3w)] (2 P_w)
+        assert (ctx.fp.decode(x[w]), ctx.fp.decode(y[w])) == exp
+
+
+# -- K8-K10: batched inversion ------------------------------------------------
+
+
+def _field_elems(F, n, seed):
+    rng = np.random.default_rng(seed)
+    return [int.from_bytes(rng.bytes(48), "big") % (F.p_int - 1) + 1 for _ in range(n)]
+
+
+@pytest.mark.parametrize("which", ["fp", "fr"])
+def test_batch_inversion_kernels_plain_match_reference_and_host(env, which):
+    """chain_fwd, fermat_inv, chain_bwd_inv and batch_inv_packed at C = 4,
+    block = 4, so 100 lanes take both levels of the recursion (100 -> 28
+    chain products -> 8)."""
+    jctx, ctx, _ = env
+    F, jF = (ctx.fp, jctx.fp) if which == "fp" else (ctx.fr, jctx.fr)
+    aff = F.affine
+    xs = _field_elems(F, 100, seed=12)
+    a = F.encode(xs)                                               # (100, NL)
+    dC = a[:96].reshape(4, 24, F.NL).permute(0, 2, 1).contiguous()   # (C, NL, Mw)
+    pe, bp = aff.chain_fwd(dC)
+    for m in (0, 23):
+        run = 1
+        for cc in range(4):
+            assert F.decode(pe[cc, :, m]) == run
+            run = run * xs[24 * cc + m] % F.p_int
+        assert F.decode(bp[:, m]) == run
+    inv_bp = aff.fermat_inv(bp)
+    assert F.decode(inv_bp.T) == [pow(v, -1, F.p_int) for v in F.decode(bp.T)]
+    inv = aff.chain_bwd_inv(pe, dC, inv_bp)
+    assert F.decode(inv.permute(0, 2, 1).reshape(96, F.NL)) == \
+        [pow(x, -1, F.p_int) for x in xs[:96]]
+    got = aff.batch_inv_packed(a.T.contiguous(), C=4, block=4).T
+    ref = jF.batch_inv(jnp.asarray(convert.to_reference(a)))
+    assert np.array_equal(convert.to_reference(got), np.asarray(ref))
+    assert F.decode(got) == [pow(x, -1, F.p_int) for x in xs]
+
+
+def test_field_batch_inv_zeros_at_chain_boundaries(env):
+    """Zeros at the first and last lane of chains give zero, and the others
+    their inverses, through Field.batch_inv's masking around
+    batch_inv_packed: at C = 4, block = 4 (70 lanes chain down 4 in both
+    recursion levels) and at the default geometry (one Fermat launch)."""
+    _, ctx, _ = env
+    F = ctx.fp
+    xs = _field_elems(F, 70, seed=13)
+    for i in (0, 31, 32, 63, 69):
+        xs[i] = 0
+    a = F.encode(xs)
+    exp = [pow(x, -1, F.p_int) if x else 0 for x in xs]
+    assert F.decode(F.batch_inv(a, C=4, block=4)) == exp
+    assert F.decode(F.batch_inv(a)) == exp
 
 
 # -- the CUDA header itself, built for the host --------------------------------

@@ -16,7 +16,7 @@ import torch
 
 from constantine_tpu_torch import convert
 from constantine_tpu_torch.models import eip4844
-from constantine_tpu_torch.models.kzg import KZG
+from constantine_tpu_torch.models.kzg import KZG, get_kzg
 from constantine_tpu_torch.models.trusted_setup import DEFAULT_SETUP, KZGSettings
 from constantine_tpu_torch.named.precompute import get_curve
 from constantine_tpu_torch.ops.ntt import bit_reversal_perm
@@ -99,6 +99,40 @@ def test_default_device_is_cuda():
         eip4844.blob_to_kzg_commitment(bytes(eip4844.BYTES_PER_BLOB))
     with pytest.raises(RuntimeError, match="cuda"):
         KZGSettings()
+
+
+def test_commitment_batch_of_no_blobs_is_empty_and_invalid_is_none():
+    r = get_curve("BLS12_381").r
+    assert eip4844.blob_to_kzg_commitment_batch([], device="cpu") == []
+    bad = bytearray(eip4844.BYTES_PER_BLOB)
+    bad[32 * 4095:] = r.to_bytes(32, "big")
+    zero = bytes(eip4844.BYTES_PER_BLOB)
+    assert eip4844.blob_to_kzg_commitment_batch([zero, bytes(bad)], device="cpu") is None
+    assert eip4844.blob_to_kzg_commitment_batch([zero, zero[:-1]], device="cpu") is None
+
+
+def test_batch_and_kzg_context_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="cuda"):
+        eip4844.blob_to_kzg_commitment_batch([bytes(eip4844.BYTES_PER_BLOB)])
+    for precompute in (True, False):
+        with pytest.raises(RuntimeError, match="cuda"):
+            get_kzg(precompute=precompute)
+
+
+@pytest.mark.slow
+def test_online_commit_and_batch_on_cpu_match_golden(settings):
+    """KZG(precompute=False), the online MSM with GLV, and 2-blob batches
+    (through the fixed-base tables, and one online MSM a blob) reproduce
+    the golden commitments."""
+    golden = json.loads(GOLDEN.read_text())
+    blobs = [dense_blob(e["seed"]) for e in golden["blobs"]]
+    want = [bytes.fromhex(e["commitment"]) for e in golden["blobs"]]
+    online = KZG(settings, precompute=False)
+    assert [eip4844.blob_to_kzg_commitment(b, online) for b in blobs] == want
+    assert eip4844.blob_to_kzg_commitment_batch(blobs, KZG(settings)) == want
+    assert eip4844.blob_to_kzg_commitment_batch(blobs, online) == want
 
 
 @pytest.mark.slow

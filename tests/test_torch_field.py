@@ -98,7 +98,7 @@ def test_inv_and_batch_inv_match_reference(ctxs, which):
     xs = _ints(F.p_int, 3, seed=3)
     ja = jF.encode(xs)
     a = convert.from_reference(ja)
-    got = F.batch_inv(a)                       # chains + one Fermat inversion
+    got = F.batch_inv(a)                       # batch_inv_packed: one Fermat inversion
     assert np.array_equal(convert.to_reference(got), np.asarray(jF.batch_inv(jnp.asarray(ja))))
     p = F.p_int
     assert F.decode(got) == [pow(x, -1, p) if x else 0 for x in xs]

@@ -1,9 +1,13 @@
-"""Port MSM stages and the precomputed fixed-base MSM against the JAX package.
+"""Port MSM stages, the online MSM and the precomputed fixed-base MSM
+against the JAX package.
 
 Stage functions (XLA-only in the reference, so cheap on the CPU) are held
-bit for bit; the whole PrecomputedMSM (plain kernels) against the JAX
-PrecomputedMSM and the host reference, with zero scalars, duplicate bases
-(the bucket doubling branch) and r - 1.
+bit for bit; the whole PrecomputedMSM, its batch, and the online msm (GLV
+on and off; plain kernels) against the JAX package and the host reference,
+with zero scalars, duplicate bases (the bucket doubling branch) and r - 1.
+The JAX XLA MSM takes 15-45 s a call on the CPU, so the whole online and
+batch MSMs meet it only in `slow` tests; the tier-1 run holds them against
+the host sum (and the GLV split bit for bit, in test_torch_glv.py).
 """
 
 import types
@@ -153,7 +157,11 @@ def test_compact_mask_gather_matches_reference(ctxs, shape2):
 def test_best_window_choices_match_reference():
     for n in (64, 4096, 1 << 16):
         assert msm_gpu.best_window_tpu(n) == jtpu.best_window_tpu(n)
+        assert msm_gpu.best_window_tpu(2 * n, 130) == jtpu.best_window_tpu(2 * n, 130)
     assert best_precomp_window(4096) == 12
+    # the online commit (GLV of 4096 points) and the 2^16 online MSM
+    assert msm_gpu.best_window_tpu(8192, 130) == 9
+    assert msm_gpu.best_window_tpu(1 << 17, 130) == 12
 
 
 def _points(ctx, n, seed):
@@ -219,7 +227,128 @@ def test_precomputed_msm_commit_geometry_matches_host(ctxs):
     assert _affine(ctx, pm(ctx.scalars_to_limbs(ks))) == _host_msm(ctx, ks, pts)
 
 
-def test_online_msm_is_not_in_this_slice(ctxs):
+def _online_case(ctx):
+    """32 points and scalars with zeros, r - 1, and equal scalars on a
+    duplicate base."""
+    n = 32
+    pts = _points(ctx, n, seed=10)
+    pts[5] = pts[4]
+    ks = _scalars(ctx.r, n, seed=11)
+    ks[0] = ks[7] = 0
+    ks[5] = ks[4]
+    ks[9] = ctx.r - 1
+    return pts, ks
+
+
+def _online_msm(ctx, pts, ks, **kw):
+    px = ctx.fp.encode([q[0] for q in pts])
+    py = ctx.fp.encode([q[1] for q in pts])
+    return (px, py), _affine(ctx, msm.msm(ctx.g1, (px, py), ctx.scalars_to_limbs(ks), **kw))
+
+
+def test_online_msm_matches_host(ctxs):
+    """The scalars path with the GLV split and c = None: 64 mini-scalar
+    points of 130 bits, best_window_tpu's c = 8, W = 17 windows, so the
+    window combine (K7 plain) runs with W > 1. (The split itself is held
+    bit for bit against the JAX package in test_torch_glv.py.)"""
     _, ctx = ctxs
-    with pytest.raises(NotImplementedError):
-        msm.msm(ctx.g1, (None, None), ctx.scalars_to_limbs([1]))
+    pts, ks = _online_case(ctx)
+    assert msm_gpu.best_window_tpu(64, 130) == 8
+    _, got = _online_msm(ctx, pts, ks)
+    assert got == _host_msm(ctx, ks, pts)
+
+
+@pytest.mark.slow
+def test_online_msm_matches_reference_package(ctxs):
+    """Against the JAX msm (XLA path, GLV on, c = 6): 20-30 s on the CPU."""
+    jctx, ctx = ctxs
+    pts, ks = _online_case(ctx)
+    (px, py), got = _online_msm(ctx, pts, ks)
+    jk, _ = _both_scalars(ctx, ks)
+    ref = jmsm.msm(jctx.g1, (jnp.asarray(convert.to_reference(px)),
+                             jnp.asarray(convert.to_reference(py))), jk, c=6, use_pallas=False)
+    (rx, ry), rinf = jctx.g1.to_affine(tuple(v[None] for v in ref))
+    assert not bool(rinf[0])
+    assert got == (jctx.fp.decode(rx)[0], jctx.fp.decode(ry)[0])
+
+
+def test_online_msm_without_glv_matches_host(ctxs):
+    """glv=False: 255-bit scalars in 256 bits of limbs, c = 8, W = 33."""
+    _, ctx = ctxs
+    pts, ks = _online_case(ctx)
+    assert _online_msm(ctx, pts, ks, glv=False)[1] == _host_msm(ctx, ks, pts)
+
+
+def test_msm_gpu_without_combine_returns_row_sums(ctxs):
+    """combine=False: each digit row is its own MSM over the shared points
+    (row 1 all zero -> infinity), standard layout (rows, NL)."""
+    _, ctx = ctxs
+    n, c = 16, 5
+    pts = _points(ctx, n, seed=12)
+    rng = np.random.default_rng(13)
+    digits = rng.integers(-(1 << (c - 1)), (1 << (c - 1)) + 1, size=(3, n))
+    digits[1] = 0
+    digits[2, :4] = 1 << (c - 1)
+    px = ctx.fp.encode([q[0] for q in pts])
+    py = ctx.fp.encode([q[1] for q in pts])
+    X, Y, Z = msm_gpu.msm_gpu(ctx.g1, (px, py), None, c=c,
+                              digits=torch.from_numpy(digits.astype(np.int32)), combine=False)
+    assert X.shape == Y.shape == Z.shape == (3, 12)
+    for b in range(3):
+        exp = _host_msm(ctx, [int(d) % ctx.r for d in digits[b]], pts)
+        assert _affine(ctx, (X[b], Y[b], Z[b])) == exp
+
+
+def _batch_case(ctx):
+    n, c, bits = 16, 6, 24
+    pts = _points(ctx, n, seed=14)
+    pts[3] = pts[2]
+    ks = [_scalars(ctx.r, n, seed=15 + b, bits=bits) for b in range(3)]
+    ks[1] = [0] * n                                      # the zero blob's row
+    ks[2][3] = ks[2][2]
+    px = ctx.fp.encode([q[0] for q in pts])
+    py = ctx.fp.encode([q[1] for q in pts])
+    return pts, ks, (px, py), c, bits
+
+
+def test_precomputed_msm_batch_matches_rows_and_host(ctxs):
+    _, ctx = ctxs
+    pts, ks, aff, c, bits = _batch_case(ctx)
+    pm = PrecomputedMSM(ctx.g1, aff, c=c, scalar_bits=bits)
+    k = torch.stack([ctx.scalars_to_limbs(kb) for kb in ks])     # (3, 16, 8)
+    X, Y, Z = pm.batch(k)
+    assert X.shape == (3, 12)
+    assert bool(ctx.g1.is_inf((X, Y, Z))[1])
+    for b in range(3):
+        got = _affine(ctx, (X[b], Y[b], Z[b]))
+        assert got == _affine(ctx, pm(k[b])) == _host_msm(ctx, ks[b], pts)
+
+
+@pytest.mark.slow
+def test_precomputed_msm_batch_matches_reference_package(ctxs):
+    """Against the JAX PrecomputedMSM.batch (its per-row CPU route)."""
+    jctx, ctx = ctxs
+    pts, ks, (px, py), c, bits = _batch_case(ctx)
+    pm = PrecomputedMSM(ctx.g1, (px, py), c=c, scalar_bits=bits)
+    jpm = JaxPrecomputedMSM(jctx.g1, (jnp.asarray(convert.to_reference(px)),
+                                      jnp.asarray(convert.to_reference(py))),
+                            c=c, scalar_bits=bits)
+    k = torch.stack([ctx.scalars_to_limbs(kb) for kb in ks])
+    got = pm.batch(k)
+    (rx, ry), rinf = jctx.g1.to_affine(jpm.batch(jnp.asarray(lb.unpack16(lb.to_numpy(k)))))
+    for b in range(3):
+        exp = None if bool(rinf[b]) else (jctx.fp.decode(rx[b]), jctx.fp.decode(ry[b]))
+        assert _affine(ctx, tuple(v[b] for v in got)) == exp
+
+
+@pytest.mark.slow
+def test_online_msm_without_glv_matches_reference_package(ctxs):
+    jctx, ctx = ctxs
+    pts, ks = _online_case(ctx)
+    (px, py), got = _online_msm(ctx, pts, ks, glv=False)
+    jk, _ = _both_scalars(ctx, ks)
+    ref = jmsm.msm(jctx.g1, (jnp.asarray(convert.to_reference(px)),
+                             jnp.asarray(convert.to_reference(py))), jk, c=6,
+                   use_pallas=False, glv=False)
+    (rx, ry), _ = jctx.g1.to_affine(tuple(v[None] for v in ref))
+    assert got == (jctx.fp.decode(rx)[0], jctx.fp.decode(ry)[0])
