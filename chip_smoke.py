@@ -6,8 +6,10 @@
 1. Builds every kernel of constantine_tpu_torch/csrc with nvcc for sm_90a
    and checks each against its plain PyTorch version at small shapes (K7
    with an infinity lane and a Y = 0 lane; K8-K10 and Field.batch_inv over
-   Fp and Fr).
-2. Four paths, each driven with every launch count set to 0 just before it
+   Fp and Fr; K13 on G1 points with both signs, a non-square x, an on-curve
+   point outside G1 and x = 0 lanes; K11 on the generators, a pair with
+   P = -P' and a batch of one; K12 on f = 1 and on Miller outputs).
+2. Eight paths, each driven with every launch count set to 0 just before it
    and read just after; each must have launched every kernel it runs:
    a. fixed-base commit: loads the EIP-4844 trusted setup, builds the KZG
       context (the fixed-base tables, on the card) and commits to four
@@ -24,14 +26,28 @@
    d. online MSM at N = 2^16 (bench.py's bls12381_g1_msm_65536 shape) over
       the first 65,536 fixed-base table rows, [2^(12j)] L_i for j < 16, with
       scalars k from a seed: equal in affine to the fixed-base commit of
-      e_i = sum_j k_{4096j+i} 2^(12j) mod r; 5 timed.
-   Every kernel must have launched over the four paths.
+      e_i = sum_j k_{4096j+i} 2^(12j) mod r; 5 timed;
+   e. prove: compute_kzg_proof on the two golden blobs at bench.py's z =
+      2^200 + 12345 and at a domain root, and compute_blob_kzg_proof: every
+      proof and y byte equal to tests/data/torch_kzg_proof_golden.json (made
+      by the JAX package); 5 timed;
+   f. verify_kzg_proof (bench.py's eip4844_verify_kzg_proof): those proofs
+      True, y + 1 False, a proof outside G1 or with a bad flag None; 5 timed;
+   g. verify_blob_kzg_proof: a valid proof True, the other blob's False; 5
+      timed;
+   h. verify_blob_kzg_proof_batch at n = 64 (bench.py's
+      eip4844_verify_blob_batch64): 64 seeded dense blobs, their batched
+      commitments and their blob proofs True; two proofs swapped False; the
+      F1 batch (a nonzero blob, C = infinity, P = [y/z]G1) False; a batch
+      with the zero blob True; 3 timed.
+   Every kernel must have launched over the paths.
 3. Holds every kernel against its plain version on the card at the paths'
-   shapes (K4-K6 on both the fixed-base and the online commit's streams),
-   with hand-built degenerate lanes (P == Q, P == -Q, infinity,
+   shapes (K4-K6 on both the fixed-base and the online commit's streams;
+   K13 at 2 and 128 lanes, K11 at 2 and 256 pairs, K12 at 1 and 256
+   lanes), with hand-built degenerate lanes (P == Q, P == -Q, infinity,
    padding keys): exact equality. Times both, and computes each kernel's
    bound from the bytes it must move and the multiplies it must do on these
-   inputs.
+   inputs. Times the pairing at B = 256 (bench.py's bls12381_pairing_batch256).
 4. Prints the kernels' JSON line, then the result line.
 
 Any failed check exits non-zero before the result line; so does a machine
@@ -48,6 +64,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_kzg_golden.json"
+PROOF_GOLDEN = ROOT / "tests" / "data" / "torch_kzg_proof_golden.json"
+INF = bytes([0xC0]) + bytes(47)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, and for the
 # operations the FP32 (non-tensor) rate, counting a 32x32->64 multiply-add as
@@ -63,6 +81,9 @@ FE_BYTES = 4 * NL
 
 EC_SRC = "constantine_tpu_torch/csrc/ec_kernels.cu"
 FIELD_SRC = "constantine_tpu_torch/csrc/field_kernels.cu"
+G1_SRC = "constantine_tpu_torch/csrc/g1_kernels.cu"
+MILLER_SRC = "constantine_tpu_torch/csrc/miller_loop.cu"
+FINAL_EXP_SRC = "constantine_tpu_torch/csrc/final_exp.cu"
 REPLACES = {
     "mont_mul": (FIELD_SRC, "constantine_tpu/ops/pallas_field.py:89"),
     "ec_add": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:543"),
@@ -74,18 +95,63 @@ REPLACES = {
     "chain_fwd": (FIELD_SRC, "constantine_tpu/ops/pallas_ec.py:1078"),
     "fermat_inv": (FIELD_SRC, "constantine_tpu/ops/pallas_ec.py:1126"),
     "chain_bwd_inv": (FIELD_SRC, "constantine_tpu/ops/pallas_ec.py:1196"),
+    "g1_decompress": (G1_SRC, "constantine_tpu/ops/pallas_g1.py:122"),
+    "miller_loop": (MILLER_SRC, "constantine_tpu/ops/pallas_pairing.py:633"),
+    "final_exp": (FINAL_EXP_SRC, "constantine_tpu/ops/pallas_pairing.py:712"),
 }
 PIPELINE = ("mont_mul", "ec_add", "ec_double_k", "flush_scan", "merge_scan", "bucket_reduce")
 # what each path must launch: the fixed-base setup inverts 90,112 points
 # through the chains, every export inverts through fermat_inv, and the
 # online MSMs combine windows with scaled_doubles (the bare MSM returns a
-# Jacobian point: no inversion)
+# Jacobian point: no inversion); proving inverts 4096 denominators through
+# the chains and checks the commitment with K13; every verify decompresses
+# with K13, adds table points with K3 and runs the pairing (K11, K12); the
+# blob verifies evaluate through the chains; the batch folds with two online
+# MSMs
+PAIRING = ("mont_mul", "ec_add", "fermat_inv", "g1_decompress", "miller_loop", "final_exp")
+CHAINS = ("chain_fwd", "fermat_inv", "chain_bwd_inv")
+
+
+def _union(*groups):
+    return tuple(dict.fromkeys(k for g in groups for k in g))
+
+
 PATH_KERNELS = {
-    "commit": PIPELINE + ("chain_fwd", "fermat_inv", "chain_bwd_inv"),
+    "commit": _union(PIPELINE, CHAINS),
     "online commit": PIPELINE + ("scaled_doubles", "fermat_inv"),
     "batch 16": PIPELINE + ("fermat_inv",),
     "msm 2^16": PIPELINE + ("scaled_doubles",),
+    "prove": _union(PIPELINE, CHAINS, ("g1_decompress",)),
+    "verify": PAIRING,
+    "verify blob": _union(PAIRING, CHAINS),
+    "verify batch 64": _union(PIPELINE, ("scaled_doubles",), CHAINS, PAIRING),
 }
+
+
+def k13_muls(p: int, u: int) -> int:
+    """Multiplies of one K13 lane (csrc/g1.cuh): x^3 + 4, the square root's
+    squarings and multiplies, the checks, the ladder over u^2 (a doubling is
+    7, a mixed addition 11) and the comparison."""
+    e, u2 = (p + 1) // 4, u * u
+    return (2 + (e.bit_length() - 1) + (bin(e).count("1") - 1) + 2
+            + 7 * (u2.bit_length() - 1) + 11 * (bin(u2).count("1") - 1) + 5)
+
+
+def pairing_muls(p: int, x_abs: int):
+    """Multiplies of one K11 and one K12 lane (csrc/pairing.cuh), counted
+    from the code: an Fp2 product is 3, a square 2, an Fp6 product 18, an
+    Fp12 product 54, a cyclotomic square 18, a sparse line product 45."""
+    dbl_iter = 36 + 36 + 4 + 45          # Fp12 square, doubling step, line
+    add_iter = 37 + 4 + 45               # addition step, line
+    nb, pc = x_abs.bit_length() - 1, bin(x_abs).count("1") - 1
+    miller = nb * dbl_iter + pc * add_iter
+    e = p - 2
+    fermat = (e.bit_length() - 1) + (bin(e).count("1") - 1)
+    inverse = 2 * 12 + 15 + 9 + (4 + fermat) + 9 + 2 * 18      # through Fp6 and Fp2
+    easy = 54 + 15 + 54 + inverse
+    pow_x = nb * 18 + pc * 54
+    hard = 5 * pow_x + 2 * 54 + (15 + 54) + (15 + 54) + 54 + (18 + 54) + 54
+    return miller, easy + hard
 
 
 class CheckFailed(Exception):
@@ -200,15 +266,20 @@ def main():
         from constantine_tpu_torch.ops.msm import (_apply_glv, _glv_for_group,
                                                    _signed_digits, msm)
         from constantine_tpu_torch.ops.ntt import bit_reversal_perm
+        from constantine_tpu_torch.models.verify_fused import get_verifier
+        from constantine_tpu_torch.ops.cuda_g1 import get_cuda_g1
+        from constantine_tpu_torch.ops.pairing import get_pairing
         from constantine_tpu_torch.utils import refmath as rm
         from constantine_tpu_torch.utils.serialization import (g1_compress_affine,
-                                                               g1_decompress_host)
+                                                               g1_decompress_host,
+                                                               parse_g1_host)
     except ImportError as e:
         print(f"the port is not beside this script ({e})", file=sys.stderr)
         return 2
-    if not GOLDEN.is_file():
-        print(f"missing {GOLDEN}", file=sys.stderr)
-        return 2
+    for f in (GOLDEN, PROOF_GOLDEN):
+        if not f.is_file():
+            print(f"missing {f}", file=sys.stderr)
+            return 2
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -248,6 +319,12 @@ def main():
                 bad = (a != b).reshape(a.shape[0], -1).any(-1) if a.dim() > 1 else a != b
                 raise CheckFailed(f"{what}: output {i} differs from the plain version "
                                   f"(first rows {bad.nonzero().flatten()[:8].tolist()})")
+
+    def k13(g1d, xm, sign, plain=False):
+        """K13 (or its plain version) with the ok bits as int32, for same()."""
+        y, ok = (g1d._decompress_plain(xm, sign.bool()) if plain
+                 else g1d.decompress_mont(xm, sign))
+        return y, ok.to(torch.int32)
 
     def affine(P):
         """Jacobian point (NL,) x 3 -> host ints (x, y), or None for infinity."""
@@ -321,9 +398,45 @@ def main():
         check(field.decode(field.batch_inv(z)) ==
               [pow(v, -1, field.p_int) if v else 0 for v in field.decode(z)],
               f"Field.batch_inv quick {field.name}")
+    # K13: G1 points with both signs (lane 1 asks for the other root), an
+    # on-curve point outside G1, a non-square x, and x = 0 lanes (what the
+    # verifier hands over for an infinity encoding)
+    g1d = get_cuda_g1()
+    half = (ctx.p + 1) // 2
+    pts13 = [rm.ec_mul(k, ctx.g, 0, ctx.p) for k in (1, 2, 3, 12345)]
+    x_out = next(x for x in range(3, 200) if rm.sqrt_mod(x ** 3 + 4, ctx.p) is not None
+                 and rm.ec_mul(r, (x, rm.sqrt_mod(x ** 3 + 4, ctx.p)), 0, ctx.p) is not None)
+    x_nsq = next(x for x in range(3, 200) if rm.sqrt_mod(x ** 3 + 4, ctx.p) is None)
+    y_out = rm.sqrt_mod(x_out ** 3 + 4, ctx.p)
+    xs13 = [q[0] for q in pts13] + [x_out, x_nsq, 0, 0]
+    sg13 = torch.tensor([q[1] >= half for q in pts13] + [y_out >= half, True, False, True],
+                        device=dev)
+    sg13[1] = ~sg13[1]
+    xm13 = F.encode(xs13, dev)
+    got13 = k13(g1d, xm13, sg13)
+    same(got13, k13(g1d, xm13, sg13, plain=True), "g1_decompress quick")
+    check(got13[1].tolist()[:6] == [1, 1, 1, 1, 0, 0], "g1_decompress quick: ok bits")
+    # K11 on (G1, G2) and (-G1, G2), and a batch of one; K12 on f = 1 and on
+    # the two Miller outputs, whose GT values multiply to one
+    pr = get_pairing()
+    eng, p12 = pr.engine, pr.fp12
+    gx, gy = (t.to(dev) for t in ctx.g1_gen)
+    g2x, g2y = (t.to(dev) for t in ctx.g2_gen)
+    P11 = (torch.cat([gx, gx]), torch.cat([gy, F.neg(gy)]))
+    Q11 = (torch.cat([g2x, g2x]), torch.cat([g2y, g2y]))
+    f11 = eng.miller_loop(P11, Q11)
+    same((f11,), (eng._miller_loop_plain(*P11, *Q11),), "miller_loop quick")
+    P1 = tuple(t[:1] for t in P11)
+    Q1 = tuple(t[:1] for t in Q11)
+    same((eng.miller_loop(P1, Q1),), (eng._miller_loop_plain(*P1, *Q1),), "miller_loop B=1")
+    one12 = p12.one((1,), dev)
+    same((eng.final_exp(one12),), (one12,), "final_exp of one")
+    gt11 = eng.final_exp(f11)
+    same((gt11,), (eng._final_exp_plain(f11),), "final_exp quick")
+    check(bool(p12.eq(p12.mul(gt11[:1], gt11[1:]), one12).all()), "e(P, Q) e(-P, Q) != 1")
     print("quick checks: mont_mul (Fp, Fr), ec_add, ec_double_k, flush_scan, merge_scan, "
-          "bucket_reduce, scaled_doubles, chain_fwd, fermat_inv, chain_bwd_inv (Fp, Fr) "
-          "exact", flush=True)
+          "bucket_reduce, scaled_doubles, chain_fwd, fermat_inv, chain_bwd_inv (Fp, Fr), "
+          "g1_decompress, miller_loop, final_exp exact", flush=True)
 
     # ---- 2. the paths ---------------------------------------------------------------
     golden = json.loads(GOLDEN.read_text())
@@ -451,6 +564,102 @@ def main():
           f"{1e3 / med:.3f} ops/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
 
+    def report_path(name, lat, per_s, unit):
+        med = statistics.median(lat)
+        print(f"{name}: median {med:.3f} ms over {len(lat)} (min {min(lat):.3f}, max "
+              f"{max(lat):.3f}); {per_s / med:.3f} {unit}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+
+    # e. prove: the golden blobs' proofs at an off-domain and an in-domain z
+    proof_golden = json.loads(PROOF_GOLDEN.read_text())
+    zs = {k: int(v, 16).to_bytes(32, "big") for k, v in proof_golden["z"].items()}
+    pg = {e["seed"]: e for e in proof_golden["blobs"]}
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    for seed, entry in pg.items():
+        blob = blobs[f"dense{seed}"]
+        for k, zb in zs.items():
+            pf, yb = eip4844.compute_kzg_proof(blob, zb, kzg)
+            check((pf.hex(), yb.hex()) == (entry[f"proof_{k}"], entry[f"y_{k}"]),
+                  f"compute_kzg_proof of blob {seed} at z {k}: {pf.hex()}, {yb.hex()}")
+        bp = eip4844.compute_blob_kzg_proof(blob, bytes.fromhex(entry["commitment"]), kzg)
+        check(bp.hex() == entry["blob_proof"], f"compute_blob_kzg_proof of blob {seed}")
+    before = build.launch_counts()
+    lat = host_ms(torch, lambda: eip4844.compute_kzg_proof(blobs["dense1"], zs["off"], kzg), 5)
+    end_path("prove", before, 5)
+    report_path("prove (compute_kzg_proof, the golden proofs and y match at both z and the "
+                "blob proofs)", lat, 1e3, "proofs/s")
+
+    # f. verify_kzg_proof on those proofs, a wrong y, a proof outside G1, a bad flag
+    e1, e2 = pg[1], pg[2]
+    C1, C2 = bytes.fromhex(e1["commitment"]), bytes.fromhex(e2["commitment"])
+    P1, y1 = bytes.fromhex(e1["proof_off"]), bytes.fromhex(e1["y_off"])
+    y1_bad = ((int.from_bytes(y1, "big") + 1) % r).to_bytes(32, "big")
+    outside = g1_compress_affine((x_out, y_out))
+    bad_flag = bytes([P1[0] & 0x7F]) + P1[1:]
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    for e in (e1, e2):
+        for k, zb in zs.items():
+            got = eip4844.verify_kzg_proof(bytes.fromhex(e["commitment"]), zb,
+                                           bytes.fromhex(e[f"y_{k}"]),
+                                           bytes.fromhex(e[f"proof_{k}"]), kzg)
+            check(got is True, f"verify_kzg_proof of blob {e['seed']} at z {k}: {got}")
+    check(eip4844.verify_kzg_proof(C1, zs["off"], y1_bad, P1, kzg) is False,
+          "verify_kzg_proof accepts y + 1")
+    for bad in (outside, bad_flag):
+        check(eip4844.verify_kzg_proof(C1, zs["off"], y1, bad, kzg) is None,
+              "verify_kzg_proof of a malformed proof is not None")
+    before = build.launch_counts()
+    lat = host_ms(torch, lambda: eip4844.verify_kzg_proof(C1, zs["off"], y1, P1, kzg), 5)
+    end_path("verify", before, 5)
+    report_path("verify_kzg_proof (4 True, y + 1 False, outside G1 and bad flag None)", lat,
+                1e3, "verifies/s")
+
+    # g. verify_blob_kzg_proof
+    BP1, BP2 = bytes.fromhex(e1["blob_proof"]), bytes.fromhex(e2["blob_proof"])
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    check(eip4844.verify_blob_kzg_proof(blobs["dense1"], C1, BP1, kzg) is True,
+          "verify_blob_kzg_proof of a valid proof")
+    check(eip4844.verify_blob_kzg_proof(blobs["dense1"], C1, BP2, kzg) is False,
+          "verify_blob_kzg_proof accepts the other blob's proof")
+    before = build.launch_counts()
+    lat = host_ms(torch, lambda: eip4844.verify_blob_kzg_proof(blobs["dense1"], C1, BP1, kzg),
+                  5)
+    end_path("verify blob", before, 5)
+    report_path("verify_blob_kzg_proof (valid True, the other blob's proof False)", lat, 1e3,
+                "verifies/s")
+
+    # h. the batch verify at n = 64 (inputs made before the counted window)
+    bblobs = [dense_blob(seed, r) for seed in range(301, 365)]
+    bcs = eip4844.blob_to_kzg_commitment_batch(bblobs, kzg)
+    bps = [eip4844.compute_blob_kzg_proof(b, c, kzg) for b, c in zip(bblobs, bcs)]
+    swapped = [bps[1], bps[0]] + bps[2:]
+    zf = eip4844.compute_challenge(blobs["dense1"], INF)
+    yf = int.from_bytes(eip4844.compute_kzg_proof(blobs["dense1"], zf.to_bytes(32, "big"),
+                                                  kzg)[1], "big")
+    Pf = g1_compress_affine(rm.ec_mul(yf * pow(zf, -1, r) % r, ctx.g, 0, ctx.p))
+    zero_proof = eip4844.compute_blob_kzg_proof(blobs["zero"], INF, kzg)
+    check(zero_proof == INF, "the zero blob's proof is not infinity")
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    check(eip4844.verify_blob_kzg_proof_batch(bblobs, bcs, bps, kzg) is True,
+          "verify_blob_kzg_proof_batch of 64 valid proofs")
+    check(eip4844.verify_blob_kzg_proof_batch(bblobs, bcs, swapped, kzg) is False,
+          "verify_blob_kzg_proof_batch accepts two swapped proofs")
+    check(eip4844.verify_blob_kzg_proof_batch([blobs["dense1"]], [INF], [Pf], kzg) is False,
+          "verify_blob_kzg_proof_batch accepts the F1 batch")
+    check(eip4844.verify_blob_kzg_proof_batch([blobs["zero"]] + bblobs[:3],
+                                              [INF] + bcs[:3], [zero_proof] + bps[:3],
+                                              kzg) is True,
+          "verify_blob_kzg_proof_batch of a batch with the zero blob")
+    before = build.launch_counts()
+    lat = host_ms(torch, lambda: eip4844.verify_blob_kzg_proof_batch(bblobs, bcs, bps, kzg), 3)
+    end_path("verify batch 64", before, 3)
+    report_path("verify_blob_kzg_proof_batch n = 64 (valid True, swapped False, F1 False, "
+                "with the zero blob True)", lat, 64e3, "blobs/s")
+
     for name in PATH_KERNELS:
         print(f"launches per call, {name}: {json.dumps(per_call[name])}", flush=True)
     total = {k: sum(c[k] for c in path_counts.values()) for k in build.KERNELS}
@@ -464,6 +673,14 @@ def main():
     profile_call(torch, names, "batch of 16",
                  lambda: eip4844.blob_to_kzg_commitment_batch(batch, kzg))
     profile_call(torch, names, "msm 2^16", lambda: msm(g, bases, k16))
+    profile_call(torch, names, "prove",
+                 lambda: eip4844.compute_kzg_proof(blobs["dense1"], zs["off"], kzg))
+    profile_call(torch, names, "verify",
+                 lambda: eip4844.verify_kzg_proof(C1, zs["off"], y1, P1, kzg))
+    profile_call(torch, names, "verify blob",
+                 lambda: eip4844.verify_blob_kzg_proof(blobs["dense1"], C1, BP1, kzg))
+    profile_call(torch, names, "verify batch 64",
+                 lambda: eip4844.verify_blob_kzg_proof_batch(bblobs, bcs, bps, kzg))
 
     # ---- 3. every kernel against its plain version at the paths' shapes --------
     report = {}
@@ -664,11 +881,67 @@ def main():
                2 * n9 * FE_BYTES, fermat_muls * n9, reps=10,
                label=f"fermat_inv n={n9}", keep=n9 == 512)
 
+    # K13 at the single verify's 2 lanes (commitment, proof) and the batch's 128
+    k13_lane = k13_muls(ctx.p, ctx.params.x_param)
+    for data, keep in ((C1 + P1, True), (b"".join(bcs) + b"".join(bps), False)):
+        x13, s13, _, _ = parse_g1_host(data)
+        xm13 = F.to_mont(lb.to_tensor(x13, dev))
+        sg13 = torch.as_tensor(s13, device=dev)
+        n13 = xm13.shape[0]
+        record("g1_decompress", k13(g1d, xm13, sg13), k13(g1d, xm13, sg13, plain=True),
+               lambda: g1d.decompress_mont(xm13, sg13),
+               lambda: g1d._decompress_plain(xm13, sg13.bool()),
+               n13 * (2 * FE_BYTES + 8), n13 * k13_lane, reps=5,
+               label=f"g1_decompress n={n13}", keep=keep)
+
+    # K11 at the single verify's 2 pairs and at 256 random pairs (bench.py's
+    # bls12381_pairing_batch256: [k]G1 and [k']G2, k, k' < 2^60 from seed 5);
+    # K12 at the verify's one product lane and at the 256 Miller outputs
+    mil_lane, fexp_lane = pairing_muls(ctx.p, eng.x_abs)
+    v = get_verifier(kzg)
+    cpar, ppar = parse_g1_host(C1), parse_g1_host(P1)
+    (xv, yv), _ = v.decompress(np.concatenate([cpar[0], ppar[0]]),
+                               np.concatenate([cpar[1], ppar[1]]),
+                               np.concatenate([cpar[2], ppar[2]]))
+    no_inf = torch.zeros(1, dtype=torch.bool, device=dev)
+    Pv, Qv, _ = v.core_pairs((xv[:1], yv[:1]), no_inf, (xv[1:], yv[1:]), no_inf,
+                             lb.to_tensor(lb.int_to_limbs(int.from_bytes(zs["off"], "big"), 8),
+                                          dev),
+                             lb.to_tensor(lb.int_to_limbs(int.from_bytes(y1, "big"), 8), dev))
+    prng = np.random.default_rng(5)
+    g1s = [rm.ec_mul(int(k), ctx.g, 0, ctx.p) for k in prng.integers(2, 2 ** 60, size=256)]
+    g2s = [rm.ec2_mul(int(k), ctx.g2_aff, (0, 0), -1, ctx.p)
+           for k in prng.integers(2, 2 ** 60, size=256)]
+    P256 = (F.encode([q[0] for q in g1s], dev), F.encode([q[1] for q in g1s], dev))
+    Q256 = tuple(F.encode([c for q in g2s for c in q[i]], dev).reshape(256, 2, NL)
+                 for i in (0, 1))
+    for (Pm, Qm), keep in (((Pv, Qv), True), ((P256, Q256), False)):
+        nm = Pm[0].shape[0]
+        record("miller_loop", (eng.miller_loop(Pm, Qm),), (eng._miller_loop_plain(*Pm, *Qm),),
+               lambda: eng.miller_loop(Pm, Qm), lambda: eng._miller_loop_plain(*Pm, *Qm),
+               nm * (2 * FE_BYTES + 4 * FE_BYTES + 12 * FE_BYTES), nm * mil_lane, reps=3,
+               label=f"miller_loop B={nm}", keep=keep)
+    fv = eng.miller_loop(Pv, Qv)
+    f1 = p12.mul(fv[:1], fv[1:])                      # multi_pairing's product
+    f256 = eng.miller_loop(P256, Q256)
+    for fm, keep in ((f1, True), (f256, False)):
+        nf = fm.shape[0]
+        record("final_exp", (eng.final_exp(fm),), (eng._final_exp_plain(fm),),
+               lambda: eng.final_exp(fm), lambda: eng._final_exp_plain(fm),
+               nf * 24 * FE_BYTES, nf * fexp_lane, reps=3, label=f"final_exp B={nf}",
+               keep=keep)
+    check(bool(p12.eq(eng.final_exp(f1), p12.one((1,), dev)).all()),
+          "the verify's pairing product is not one")
+    pair_ms = cuda_ms(torch, lambda: pr.pairing(P256, Q256), 3)
+    print(f"pairing B=256 (K11 + K12): {pair_ms:.3f} ms, {256e3 / pair_ms:.3f} pairings/s",
+          flush=True)
+
     kernels = []
     for name in build.KERNELS:
         src, rep = REPLACES[name]
         kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
                             launches=total[name], library_ms=None, **report[name]))
+    print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("field_kernels", "ec_kernels")
+SOURCES = ("field_kernels", "ec_kernels", "g1_kernels", "miller_loop", "final_exp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -59,8 +60,9 @@ def build_all(verbose: bool = False) -> float:
     """Compile every source whose library is missing, in parallel.
 
     Returns the seconds spent. Raises with nvcc's output if a build fails.
-    verbose adds -Xptxas -v: ptxas prints each kernel's registers, shared
-    memory and spills.
+    verbose adds -Xptxas -v and prints, for each kernel, the registers,
+    stack frame and spills ptxas reports (ptxas_summary); otherwise nvcc's
+    output is printed only when there is some.
     """
     t0 = time.perf_counter()
     missing = [s for s in SOURCES if not library_path(s).exists()]
@@ -79,7 +81,10 @@ def build_all(verbose: bool = False) -> float:
     errors = []
     for stem, out, tmp, proc in procs:
         log, _ = proc.communicate()
-        if log.strip():
+        if proc.returncode == 0 and verbose:
+            for line in ptxas_summary(log):
+                print(f"[nvcc {stem}] {line}", flush=True)
+        elif log.strip():
             print(f"[nvcc {stem}]\n{log.rstrip()}", flush=True)
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {stem}.cu (exit {proc.returncode})")
@@ -88,6 +93,61 @@ def build_all(verbose: bool = False) -> float:
     if errors:
         raise RuntimeError("; ".join(errors))
     return time.perf_counter() - t0
+
+
+def ptxas_summary(log: str):
+    """One line per __global__ kernel from ptxas -v output: registers,
+    stack frame and spills (device functions of their own, the tower
+    products, have stack lines but no register line; their spills are
+    summed onto the kernel compiled with them)."""
+    kernels, extra, current, entry = {}, {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            kernels[entry] = {"regs": None}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and current is not None:
+            vals = tuple(int(v) for v in m.groups())
+            if current in kernels:
+                kernels[current]["frame"] = vals
+            elif entry is not None:
+                e = extra.setdefault(entry, [0, 0])
+                e[0] += vals[1]
+                e[1] += vals[2]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            kernels[entry]["regs"] = int(m.group(1))
+    out = []
+    for name, k in kernels.items():
+        frame, spill, fill = k.get("frame", (0, 0, 0))
+        es, el = extra.get(name, (0, 0))
+        out.append(f"{_kernel_name(name)}: {k['regs']} registers, {frame} bytes "
+                   f"stack frame, {spill} bytes spill stores, {fill} bytes spill loads"
+                   + (f"; its device functions {es} bytes spill stores, {el} bytes spill "
+                      f"loads" if es or el else ""))
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """The `..._kernel` identifier inside a mangled name (its length prefix
+    read as the mangling writes it), else the name as it is."""
+    for i in range(len(mangled)):
+        for j in range(i + 1, min(i + 4, len(mangled))):
+            if not mangled[i:j].isdigit():
+                break
+            cand = mangled[j:j + int(mangled[i:j])]
+            if cand.endswith("_kernel") and cand[:1].isalpha() and len(cand) == int(mangled[i:j]):
+                limbs = re.search(r"ILi(\d+)E", mangled)
+                return cand + (f"<{limbs.group(1)}>" if limbs else "")
+    return mangled
 
 
 @functools.cache
@@ -150,6 +210,9 @@ KERNELS = {
         Kernel("fermat_inv", "field_kernels", "ctt_fermat_inv", [I, P, P, I, P, P, I]),
         Kernel("chain_bwd_inv", "field_kernels", "ctt_chain_bwd_inv",
                [I, P, P, P, P, P, I, I]),
+        Kernel("g1_decompress", "g1_kernels", "ctt_g1_decompress", [P] * 5 + [I]),
+        Kernel("miller_loop", "miller_loop", "ctt_miller_loop", [P] * 6 + [I]),
+        Kernel("final_exp", "final_exp", "ctt_final_exp", [P] * 3 + [I]),
     )
 }
 

@@ -23,22 +23,23 @@ from .cuda_field import _on_cuda, mont_mul_plain
 # ---------------------------------------------------------------------------
 
 
+def _muls(mul, lhs, rhs):
+    """Independent products as one multiply over stacked operands."""
+    return mul(torch.stack(lhs), torch.stack(rhs)).unbind(0)
+
+
 def ec_double(F, mul, P):
     """dbl-2009-l. Z = 0 in gives Z = 0 out; Y = 0 gives infinity."""
     X, Y, Z = P
     add, sub, dbl = F.add, F.sub, F.double
-    A = mul(X, X)
-    B = mul(Y, Y)
-    C = mul(B, B)
+    A, B, YZ = _muls(mul, [X, Y, Y], [X, Y, Z])
     t = add(X, B)
-    t = mul(t, t)
+    C, t = _muls(mul, [B, t], [B, t])
     D = dbl(sub(sub(t, A), C))
     E = add(dbl(A), A)
-    Fq = mul(E, E)
-    X3 = sub(Fq, dbl(D))
+    X3 = sub(mul(E, E), dbl(D))
     Y3 = sub(mul(E, sub(D, X3)), dbl(dbl(dbl(C))))
-    Z3 = dbl(mul(Y, Z))
-    return X3, Y3, Z3
+    return X3, Y3, dbl(YZ)
 
 
 def _finish(F, mul, P, cond_dbl, cond_opp, out):
@@ -57,20 +58,18 @@ def ec_madd(F, mul, P, Q):
     X1, Y1, Z1 = P
     X2, Y2 = Q
     add, sub, dbl = F.add, F.sub, F.double
-    Z1Z1 = mul(Z1, Z1)
-    U2 = mul(X2, Z1Z1)
-    S2 = mul(mul(Y2, Z1), Z1Z1)
+    Z1Z1, Y2Z1 = _muls(mul, [Z1, Y2], [Z1, Z1])
+    U2, S2 = _muls(mul, [X2, Y2Z1], [Z1Z1, Z1Z1])
     H = sub(U2, X1)
-    HH = mul(H, H)
-    I = dbl(dbl(HH))
-    J = mul(H, I)
     R = dbl(sub(S2, Y1))
-    V = mul(X1, I)
-    R2 = mul(R, R)
-    X3 = sub(sub(R2, J), dbl(V))
-    Y3 = sub(mul(R, sub(V, X3)), dbl(mul(Y1, J)))
     ZH = add(Z1, H)
-    Z3 = sub(sub(mul(ZH, ZH), Z1Z1), HH)
+    HH, R2, ZH2 = _muls(mul, [H, R, ZH], [H, R, ZH])
+    I = dbl(dbl(HH))
+    J, V = _muls(mul, [H, X1], [I, I])
+    X3 = sub(sub(R2, J), dbl(V))
+    RV, YJ = _muls(mul, [R, Y1], [sub(V, X3), J])
+    Y3 = sub(RV, dbl(YJ))
+    Z3 = sub(sub(ZH2, Z1Z1), HH)
     p_inf = F.is_zero(Z1)
     h0 = F.is_zero(H)
     r0 = F.is_zero(R)
@@ -86,22 +85,17 @@ def ec_add(F, mul, P, Q):
     X1, Y1, Z1 = P
     X2, Y2, Z2 = Q
     add, sub, dbl = F.add, F.sub, F.double
-    Z1Z1 = mul(Z1, Z1)
-    Z2Z2 = mul(Z2, Z2)
-    U1 = mul(X1, Z2Z2)
-    U2 = mul(X2, Z1Z1)
-    S1 = mul(mul(Y1, Z2), Z2Z2)
-    S2 = mul(mul(Y2, Z1), Z1Z1)
+    ZZ = add(Z1, Z2)
+    Z1Z1, Z2Z2, Y1Z2, Y2Z1, ZZ2 = _muls(mul, [Z1, Z2, Y1, Y2, ZZ], [Z1, Z2, Z2, Z1, ZZ])
+    U1, U2, S1, S2 = _muls(mul, [X1, X2, Y1Z2, Y2Z1], [Z2Z2, Z1Z1, Z2Z2, Z1Z1])
     H = sub(U2, U1)
     R = dbl(sub(S2, S1))
     H2 = dbl(H)
-    I = mul(H2, H2)
-    J = mul(H, I)
-    V = mul(U1, I)
-    X3 = sub(sub(mul(R, R), J), dbl(V))
-    Y3 = sub(mul(R, sub(V, X3)), dbl(mul(S1, J)))
-    ZZ = add(Z1, Z2)
-    Z3 = mul(sub(sub(mul(ZZ, ZZ), Z1Z1), Z2Z2), H)
+    I, RR = _muls(mul, [H2, R], [H2, R])
+    J, V, Z3 = _muls(mul, [H, U1, sub(sub(ZZ2, Z1Z1), Z2Z2)], [I, I, H])
+    X3 = sub(sub(RR, J), dbl(V))
+    RV, SJ = _muls(mul, [R, S1], [sub(V, X3), J])
+    Y3 = sub(RV, dbl(SJ))
     p_inf = F.is_zero(Z1)
     q_inf = F.is_zero(Z2)
     h0 = F.is_zero(H)

@@ -1,11 +1,13 @@
-"""Batched G1 group law (a = 0 short Weierstrass, Jacobian coordinates).
+"""Batched group laws (a = 0 short Weierstrass, Jacobian coordinates).
 
-Counterpart of ``constantine_tpu/ops/ec.py`` (``ECGroup``) for the base
-field. Points are tuples of (..., NL) int32 field elements; infinity is any
-point with Z == 0, built as (1, 1, 0) in Montgomery form. ``double`` and
-``add`` run the K3 kernels on CUDA tensors (through the planar layout of
-``cuda_ec``) and their plain versions on CPU tensors; ``madd`` composes
-field ops (K1 on CUDA), as the reference's XLA group law did.
+Counterpart of ``constantine_tpu/ops/ec.py`` (``ECGroup``). G1
+(``ECGroup``): points are tuples of (..., NL) int32 field elements;
+infinity is any point with Z == 0, built as (1, 1, 0) in Montgomery form.
+``double`` and ``add`` run the K3 kernels on CUDA tensors (through the
+planar layout of ``cuda_ec``) and their plain versions on CPU tensors;
+``madd`` composes field ops (K1 on CUDA), as the reference's XLA group law
+did. G2 (``G2Group``, over the Fp2 tower): plain torch on either device,
+as the reference's XLA G2.
 """
 
 from __future__ import annotations
@@ -94,3 +96,93 @@ class ECGroup:
     def madd(self, P, Q_aff):
         """Jacobian P + affine Q (madd-2007-bl, complete by selects)."""
         return ec_madd(self.F, self.F.mul, P, Q_aff)
+
+
+class G2Group:
+    """y^2 = x^3 + b' over the Fp2 tower (a = 0), Jacobian coordinates.
+
+    Counterpart of the reference's ``ECGroup`` over Fp2 (``ctx.g2``): the
+    same complete add-2007-bl and dbl-2009-l with the degenerate-case
+    selects. The reference runs it as XLA ops, so here it is plain torch over
+    the tower, whose products go to K1 on CUDA tensors; the independent
+    products of each formula are stacked into one multiply. Points are
+    tuples of (..., 2, NL) Fp2 coordinates; infinity has Z == 0.
+    """
+
+    def __init__(self, fp2, b_elem, name: str = "G2"):
+        self.F = fp2
+        self.b = b_elem
+        self.name = name
+
+    def infinity(self, batch_shape=(), device="cpu"):
+        F = self.F
+        return (F.one(batch_shape, device), F.one(batch_shape, device),
+                F.zero(batch_shape, device))
+
+    def from_affine(self, xy, inf_mask=None):
+        x, y = xy
+        z = self.F.one(x.shape[:-2], x.device)
+        if inf_mask is not None:
+            z = self.F.cselect(inf_mask, torch.zeros_like(z), z)
+        return (x, y, z)
+
+    def to_affine(self, P):
+        """Jacobian -> ((x, y), inf_mask); one Fp2 inversion (through the norm
+        into Field.batch_inv) for the whole batch."""
+        X, Y, Z = P
+        F = self.F
+        zinv = F.inv(Z)                     # 0 stays 0 for points at infinity
+        zinv2 = F.square(zinv)
+        x, zinv3 = F.mul(torch.stack([X, zinv]), torch.stack([zinv2, zinv2]))
+        return (x, F.mul(Y, zinv3)), F.is_zero(Z)
+
+    def is_inf(self, P):
+        return self.F.is_zero(P[2])
+
+    def neg(self, P):
+        X, Y, Z = P
+        return (X, self.F.neg(Y), Z)
+
+    def _mul(self, lhs, rhs):
+        return self.F.mul(torch.stack(lhs), torch.stack(rhs)).unbind(0)
+
+    def double(self, P):
+        """dbl-2009-l: Z = 0 in gives Z = 0 out."""
+        F = self.F
+        X, Y, Z = P
+        A, B, YZ = self._mul([X, Y, Y], [X, Y, Z])
+        XB = F.add(X, B)
+        C, t = self._mul([B, XB], [B, XB])
+        D = F.double(F.sub(F.sub(t, A), C))
+        E = F.add(F.double(A), A)
+        X3 = F.sub(F.square(E), F.double(D))
+        Y3 = F.sub(F.mul(E, F.sub(D, X3)), F.double(F.double(F.double(C))))
+        return (X3, Y3, F.double(YZ))
+
+    def add(self, P, Q):
+        """Complete P + Q: P == Q doubles, P == -Q gives infinity, and an
+        infinity on either side gives the other point."""
+        F = self.F
+        X1, Y1, Z1 = P
+        X2, Y2, Z2 = Q
+        ZZ = F.add(Z1, Z2)
+        Z1Z1, Z2Z2, Y1Z2, Y2Z1, ZZ2 = self._mul([Z1, Z2, Y1, Y2, ZZ], [Z1, Z2, Z2, Z1, ZZ])
+        U1, U2, S1, S2 = self._mul([X1, X2, Y1Z2, Y2Z1], [Z2Z2, Z1Z1, Z2Z2, Z1Z1])
+        H = F.sub(U2, U1)
+        R = F.double(F.sub(S2, S1))
+        H2 = F.double(H)
+        I, RR = self._mul([H2, R], [H2, R])
+        J, V, Z3 = self._mul([H, U1, F.sub(F.sub(ZZ2, Z1Z1), Z2Z2)], [I, I, H])
+        X3 = F.sub(F.sub(RR, J), F.double(V))
+        RV, SJ = self._mul([R, S1], [F.sub(V, X3), J])
+        out = (X3, F.sub(RV, F.double(SJ)), Z3)
+        p_inf, q_inf = F.is_zero(Z1), F.is_zero(Z2)
+        h0, r0 = F.is_zero(H), F.is_zero(R)
+        both = ~p_inf & ~q_inf
+        is_dbl, is_opp = both & h0 & r0, both & h0 & ~r0
+        if bool(is_dbl.any()):
+            out = tuple(F.cselect(is_dbl, d, o) for d, o in zip(self.double(P), out))
+        inf = self.infinity(out[0].shape[:-2], out[0].device)
+        out = tuple(F.cselect(is_opp, i, o) for i, o in zip(inf, out))
+        out = tuple(F.cselect(p_inf, q, o) for q, o in zip(Q, out))
+        return tuple(F.cselect(q_inf, p, o) for p, o in zip(P, out))

@@ -96,16 +96,19 @@ class Field:
     # -- core modular ops --------------------------------------------------------
 
     def add(self, a, b):
+        """a + b mod p: a + b and a + b - p carried in one pass (a + b < 2p
+        < R needs no top carry), the second kept unless it went negative."""
         p = self.consts(a.device)["p32"]
-        s, carry = lb.add_carry(lb.widen(a), lb.widen(b))
-        d, borrow = lb.sub_borrow(s, p)
-        return lb.narrow(lb.cselect((carry == 1) | (borrow == 0), d, s))
+        s = lb.widen(a) + lb.widen(b)
+        v, c = lb.normalize(torch.stack([s, s - p]), lb.LIMB_BITS)
+        return lb.narrow(lb.cselect(c[1] == 0, v[1], v[0]))
 
     def sub(self, a, b):
+        """a - b mod p: a - b and a - b + p carried in one pass."""
         p = self.consts(a.device)["p32"]
-        d, borrow = lb.sub_borrow(lb.widen(a), lb.widen(b))
-        dp, _ = lb.add_carry(d, p)
-        return lb.narrow(lb.cselect(borrow == 1, dp, d))
+        d = lb.widen(a) - lb.widen(b)
+        v, c = lb.normalize(torch.stack([d, d + p]), lb.LIMB_BITS)
+        return lb.narrow(lb.cselect(c[0] == 0, v[0], v[1]))
 
     def neg(self, a):
         p = self.consts(a.device)["p32"]

@@ -140,7 +140,10 @@ def normalize(x: torch.Tensor, bits: int):
     no digit carries, so a long ripple (0xFF..FF + 1) is resolved exactly.
     """
     mask = (1 << bits) - 1
-    out = torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
+    c = x >> bits
+    x = x & mask                      # the first round needs no check: one
+    out = c[..., -1].clone()          # host sync in the common case
+    x[..., 1:] += c[..., :-1]
     while True:
         c = x >> bits
         if not bool(c.any()):
@@ -190,9 +193,14 @@ def column_products(x: torch.Tensor, y: torch.Tensor, S: torch.Tensor) -> torch.
     below 2^38, so each value is an integer float64 holds exactly, in any
     summation order.
     """
-    B = x.shape[0]
-    outer = x.to(torch.float64)[:, :, None] * y.to(torch.float64)[:, None, :]
-    return (outer.reshape(B, -1) @ S).to(torch.int64)
+    B, D1 = x.shape
+    xf, yf = x.to(torch.float64), y.to(torch.float64)
+    if B < 1024:                      # one matmul: fewest ops for narrow batches
+        return ((xf[:, :, None] * yf[:, None, :]).reshape(B, -1) @ S).to(torch.int64)
+    out = torch.zeros((B, S.shape[1]), dtype=torch.float64, device=x.device)
+    for i in range(D1):               # D1 shifted rows: less work on wide ones
+        out[:, i:i + yf.shape[1]] += xf[:, i:i + 1] * yf
+    return out.to(torch.int64)
 
 
 def sub_borrow(a: torch.Tensor, b: torch.Tensor):

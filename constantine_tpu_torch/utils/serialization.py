@@ -1,15 +1,19 @@
-"""BLS12-381 scalar and G1 codecs (ZCash compressed format).
+"""BLS12-381 scalar, G1 and G2 codecs (ZCash compressed format).
 
 Counterpart of the parts of ``constantine_tpu/utils/serialization.py`` the
-commitment path needs: ``scalars_from_bytes``, ``g1_compress_canonical``,
-and a host big-int G1 decompression for the trusted setup (y =
-rhs^((p+1)/4) since p = 3 mod 4, with the flag and sign rules of the
-reference's ``g1_decompress``; no subgroup check, as the reference's
-default setup loading).
+EIP-4844 paths need: ``scalars_from_bytes``, ``g1_compress_canonical``, a
+host big-int G1 decompression for the trusted setup (y = rhs^((p+1)/4)
+since p = 3 mod 4, with the flag and sign rules of the reference's
+``g1_decompress``; no subgroup check, as the reference's default setup
+loading), a host G2 decompression for the setup's G2 points, and the host
+halves of the verifier's parsing: ``parse_g1_host`` (the flag and range
+rules of ``models/verify_fused.py:parse_g1_host``; K13 does the rest) and
+``parse_scalar_host`` (``models/eip4844.py:_parse_scalar_host``).
 
-Byte layout (48 bytes, big-endian): bit 7 of byte 0 is the compression flag
-(always 1 here), bit 6 infinity, bit 5 the sign (y lexicographically
-largest).
+Byte layout (48 bytes for G1, 96 for G2 as x.c1 || x.c0, big-endian): bit
+7 of byte 0 is the compression flag (always 1 here), bit 6 infinity, bit 5
+the sign (y lexicographically largest; for Fp2 by c1, or by c0 when c1 is
+0).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 
 from ..named.curves import BLS12_381
 from ..ops import limbs as lb
+from . import refmath as rm
 
 _P = BLS12_381.p
 _R = BLS12_381.r
@@ -90,6 +95,87 @@ def g1_decompress_host(data: bytes):
         ok = comp and x < _P and y * y % _P == rhs
         if (y >= _HALF_P) != sign:
             y = (-y) % _P
+        valid[i] = ok
+        points.append((x, y) if ok else None)
+    return points, inf, valid
+
+
+def _fp_from_be48(arr: np.ndarray):
+    """(N, 48) uint8, flags cleared -> ((N, 12) canonical limbs, value < p)."""
+    limbs = lb.bytes_be_to_limbs(arr.tobytes(), 48, lb.num_limbs(_P.bit_length()))
+    p_be = np.frombuffer(_P.to_bytes(48, "big"), dtype=np.uint8)
+    lt = np.zeros(arr.shape[0], dtype=np.bool_)
+    decided = np.zeros(arr.shape[0], dtype=np.bool_)
+    for i in range(48):
+        lt |= (~decided) & (arr[:, i] < p_be[i])
+        decided |= arr[:, i] != p_be[i]
+    return limbs, lt
+
+
+def parse_g1_host(data: bytes):
+    """Host half of G1 decompression: (N*48) bytes -> (x canonical (N, 12)
+    u32, sign (N,), inf (N,), host_ok (N,)). host_ok holds the flag and
+    range rules: the compression bit set; infinity only as x = 0 without
+    the sign bit; otherwise x < p. Is-square and the subgroup are K13's."""
+    if len(data) == 0 or len(data) % 48:
+        raise ValueError(f"G1 compressed encoding length {len(data)} is not a "
+                         "multiple of 48")
+    arr = np.frombuffer(bytes(data), dtype=np.uint8).reshape(-1, 48).copy()
+    flags = arr[:, 0]
+    comp = (flags & 0x80) != 0
+    inf = (flags & 0x40) != 0
+    sign = (flags & 0x20) != 0
+    arr[:, 0] &= 0x1F
+    x_canon, lt_p = _fp_from_be48(arr)
+    x_zero = (x_canon == 0).all(axis=1)
+    host_ok = np.where(inf, comp & x_zero & ~sign, comp & lt_p)
+    return x_canon, sign, inf, host_ok
+
+
+def parse_scalar_host(data: bytes):
+    """32-byte big-endian scalar -> ((8,) canonical u32 limbs, value < r), or
+    (None, False) for a wrong length."""
+    if data is None or len(data) != 32:
+        return None, False
+    limbs, valid = scalars_from_bytes(data)
+    return limbs[0], bool(valid.all())
+
+
+def _fp2_is_big(y) -> bool:
+    return (y[0] >= _HALF_P) if y[1] == 0 else (y[1] >= _HALF_P)
+
+
+def g2_decompress_host(data: bytes, subgroup_check: bool = True):
+    """(N*96) compressed bytes -> (points, inf, valid) with python ints:
+    points[i] is ((x0, x1), (y0, y1)), or None for infinity and invalid
+    input. The subgroup check is [r]Q == infinity."""
+    if len(data) == 0 or len(data) % 96:
+        raise ValueError(f"G2 compressed encoding length {len(data)} is not a "
+                         "multiple of 96")
+    nr = BLS12_381.fp2_nonresidue
+    b2 = rm.fp2_mul((BLS12_381.b, 0), BLS12_381.fp6_nonresidue, nr, _P)
+    n = len(data) // 96
+    points, inf, valid = [], np.zeros(n, bool), np.zeros(n, bool)
+    for i in range(n):
+        chunk = data[96 * i: 96 * (i + 1)]
+        flags = chunk[0]
+        comp, is_inf, sign = bool(flags & 0x80), bool(flags & 0x40), bool(flags & 0x20)
+        x1 = int.from_bytes(bytes([flags & 0x1F]) + chunk[1:48], "big")
+        x0 = int.from_bytes(chunk[48:], "big")
+        inf[i] = is_inf
+        if is_inf:
+            valid[i] = comp and x0 == 0 and x1 == 0 and not sign
+            points.append(None)
+            continue
+        x = (x0, x1)
+        y = None
+        if comp and x0 < _P and x1 < _P:
+            y = rm.fp2_sqrt(rm.fp2_add(rm.fp2_mul(x, rm.fp2_mul(x, x, nr, _P), nr, _P), b2, _P),
+                            nr, _P)
+        if y is not None and _fp2_is_big(y) != sign:
+            y = rm.fp2_neg(y, _P)
+        ok = y is not None and (not subgroup_check
+                                or rm.ec2_mul(_R, (x, y), (0, 0), nr, _P) is None)
         valid[i] = ok
         points.append((x, y) if ok else None)
     return points, inf, valid
