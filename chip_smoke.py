@@ -8,9 +8,10 @@
    with an infinity lane and a Y = 0 lane; K8-K10 and Field.batch_inv over
    Fp and Fr; K13 on G1 points with both signs, a non-square x, an on-curve
    point outside G1 and x = 0 lanes; K11 on the generators, a pair with
-   P = -P' and a batch of one; K12 on f = 1 and on Miller outputs).
-2. Eight paths, each driven with every launch count set to 0 just before it
-   and read just after; each must have launched every kernel it runs:
+   P = -P' and a batch of one; K12 on f = 1 and on Miller outputs; K3'
+   ntt_bfly and ntt_twm with 0, 1, r - 1 lanes and w = 1).
+2. Twelve paths, each driven with every launch count set to 0 just before
+   it and read just after; each must have launched every kernel it runs:
    a. fixed-base commit: loads the EIP-4844 trusted setup, builds the KZG
       context (the fixed-base tables, on the card) and commits to four
       blobs through blob_to_kzg_commitment: a zero blob (infinity), a
@@ -40,12 +41,29 @@
       commitments and their blob proofs True; two proofs swapped False; the
       F1 batch (a nonzero blob, C = infinity, P = [y/z]G1) False; a batch
       with the zero blob True; 3 timed.
+   i. compute_cells (EIP-7594): the zero blob's 128 zero cells, the two
+      golden blobs' cells against the SHA-256 in
+      tests/data/torch_peerdas_golden.json (the JAX package's cells), and
+      two cells recomputed on the host by the EIP-4844 barycentric formula
+      over the blob's evaluation form, one in the 4096 domain (cell 5) and
+      one off it (cell 100); 5 timed;
+   j. compute_cells_and_kzg_proofs: the PeerDAS setup (monomial SRS, FK20
+      bank on the card) timed; the golden blobs' 128 proofs byte-equal to
+      the golden file, the zero blob's all infinity; 3 timed;
+   k. verify_cell_kzg_proof_batch at 128 cells: all of golden blob 1 True;
+      64 of each golden blob (two commitments) True; a flipped cell byte
+      False; two proofs swapped False; the zero blob's cells with infinity
+      commitment and proofs True; index 128 or a 2047-byte cell None; 5 timed;
+   l. recover_cells_and_kzg_proofs from every other cell and from all 128:
+      cells and proofs equal to path j's; from 63 cells None; 3 timed.
    Every kernel must have launched over the paths.
 3. Holds every kernel against its plain version on the card at the paths'
    shapes (K4-K6 on both the fixed-base and the online commit's streams;
    K13 at 2 and 128 lanes, K11 at 2 and 256 pairs, K12 at 1 and 256
-   lanes), with hand-built degenerate lanes (P == Q, P == -Q, infinity,
-   padding keys): exact equality. Times both, and computes each kernel's
+   lanes, K3' at every stage of the 4096 iNTT and 8192 NTT (four-step),
+   the (64, 128) FK20 NTT and the (128, 64) cell iNTT), with hand-built
+   degenerate lanes (P == Q, P == -Q, infinity, padding keys): exact
+   equality. Times both, and computes each kernel's
    bound from the bytes it must move and the multiplies it must do on these
    inputs. Times the pairing at B = 256 (bench.py's bls12381_pairing_batch256).
 4. Prints the kernels' JSON line, then the result line.
@@ -65,6 +83,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_kzg_golden.json"
 PROOF_GOLDEN = ROOT / "tests" / "data" / "torch_kzg_proof_golden.json"
+PEERDAS_GOLDEN = ROOT / "tests" / "data" / "torch_peerdas_golden.json"
 INF = bytes([0xC0]) + bytes(47)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, and for the
@@ -76,6 +95,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 NL = 12
 MUL_OPS = 2 * (2 * NL * NL + NL)          # one 12-limb CIOS multiply
+FR_MUL_OPS = 2 * (2 * 8 * 8 + 8)          # one 8-limb (Fr) CIOS multiply
 MULS = {"madd": 11, "add": 16, "double": 7}
 FE_BYTES = 4 * NL
 
@@ -84,6 +104,7 @@ FIELD_SRC = "constantine_tpu_torch/csrc/field_kernels.cu"
 G1_SRC = "constantine_tpu_torch/csrc/g1_kernels.cu"
 MILLER_SRC = "constantine_tpu_torch/csrc/miller_loop.cu"
 FINAL_EXP_SRC = "constantine_tpu_torch/csrc/final_exp.cu"
+NTT_SRC = "constantine_tpu_torch/csrc/ntt_kernels.cu"
 REPLACES = {
     "mont_mul": (FIELD_SRC, "constantine_tpu/ops/pallas_field.py:89"),
     "ec_add": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:543"),
@@ -98,6 +119,8 @@ REPLACES = {
     "g1_decompress": (G1_SRC, "constantine_tpu/ops/pallas_g1.py:122"),
     "miller_loop": (MILLER_SRC, "constantine_tpu/ops/pallas_pairing.py:633"),
     "final_exp": (FINAL_EXP_SRC, "constantine_tpu/ops/pallas_pairing.py:712"),
+    "ntt_bfly": (NTT_SRC, "constantine_tpu/ops/ntt.py:168"),
+    "ntt_twm": (NTT_SRC, "constantine_tpu/ops/ntt.py:198"),
 }
 PIPELINE = ("mont_mul", "ec_add", "ec_double_k", "flush_scan", "merge_scan", "bucket_reduce")
 # what each path must launch: the fixed-base setup inverts 90,112 points
@@ -107,7 +130,11 @@ PIPELINE = ("mont_mul", "ec_add", "ec_double_k", "flush_scan", "merge_scan", "bu
 # the chains and checks the commitment with K13; every verify decompresses
 # with K13, adds table points with K3 and runs the pairing (K11, K12); the
 # blob verifies evaluate through the chains; the batch folds with two online
-# MSMs
+# MSMs; compute_cells runs two four-step transforms (K3', K1 for the
+# Montgomery conversions and 1/n); FK20 adds the batched radix-2 NTT and the
+# scalar multiplications (K3 double and add) and compresses through K9; the
+# cell verify decompresses with K13, runs the cell iNTT, two online MSMs and
+# the pairing; recovery adds the coset transforms and Fr inversions (K8-K10)
 PAIRING = ("mont_mul", "ec_add", "fermat_inv", "g1_decompress", "miller_loop", "final_exp")
 CHAINS = ("chain_fwd", "fermat_inv", "chain_bwd_inv")
 
@@ -125,6 +152,11 @@ PATH_KERNELS = {
     "verify": PAIRING,
     "verify blob": _union(PAIRING, CHAINS),
     "verify batch 64": _union(PIPELINE, ("scaled_doubles",), CHAINS, PAIRING),
+    "cells": ("mont_mul", "ntt_bfly", "ntt_twm"),
+    "cells and proofs": ("mont_mul", "ntt_bfly", "ntt_twm", "ec_add", "ec_double_k",
+                         "fermat_inv"),
+    "verify cells": _union(PIPELINE, ("scaled_doubles", "ntt_bfly"), PAIRING),
+    "recover": _union(("mont_mul", "ntt_bfly", "ntt_twm", "ec_add", "ec_double_k"), CHAINS),
 }
 
 
@@ -169,6 +201,28 @@ def dense_blob(seed: int, r: int) -> bytes:
     rng = np.random.default_rng(seed)
     return b"".join((int.from_bytes(rng.bytes(32), "big") % r).to_bytes(32, "big")
                     for _ in range(4096))
+
+
+def host_cell(blob: bytes, cell: int, ctx, brp12, brp13) -> bytes:
+    """Cell `cell` of the extended blob on the host: the blob's polynomial at
+    the cell's 64 points w_8192^brp13[64 cell + j] by the EIP-4844
+    barycentric formula over its evaluation form (brp order), with the
+    in-domain branch y = p_m for a point equal to root m."""
+    r, N = ctx.r, 4096
+    w12, w13 = ctx.root_of_unity(12), ctx.root_of_unity(13)
+    roots = [pow(w12, int(b), r) for b in brp12]
+    where = {w: m for m, w in enumerate(roots)}
+    evals = [int.from_bytes(blob[32 * i:32 * (i + 1)], "big") for i in range(N)]
+    inv_n = pow(N, -1, r)
+    out = []
+    for j in range(64):
+        z = pow(w13, int(brp13[64 * cell + j]), r)
+        if z in where:
+            out.append(evals[where[z]])
+            continue
+        acc = sum(e * w * pow(z - w, -1, r) for e, w in zip(evals, roots)) % r
+        out.append((pow(z, N, r) - 1) * inv_n % r * acc % r)
+    return b"".join(v.to_bytes(32, "big") for v in out)
 
 
 def cuda_ms(torch, fn, reps):
@@ -255,28 +309,30 @@ def main():
     sys.path.insert(0, str(ROOT))
     try:
         from constantine_tpu_torch import build
-        from constantine_tpu_torch.models import eip4844
+        from constantine_tpu_torch.models import eip4844, peerdas
         from constantine_tpu_torch.models.kzg import get_kzg
-        from constantine_tpu_torch.models.trusted_setup import DEFAULT_SETUP
+        from constantine_tpu_torch.models.trusted_setup import DEFAULT_SETUP, get_settings
         from constantine_tpu_torch.named.precompute import get_curve
         from constantine_tpu_torch.ops import limbs as lb
         from constantine_tpu_torch.ops import msm_gpu
         from constantine_tpu_torch.ops.cuda_ec import ec_add, ec_double
         from constantine_tpu_torch.ops.cuda_field import mont_mul, mont_mul_plain
+        from constantine_tpu_torch.ops.cuda_ntt import ntt_bfly, ntt_bfly_plain, ntt_twm
         from constantine_tpu_torch.ops.msm import (_apply_glv, _glv_for_group,
                                                    _signed_digits, msm)
-        from constantine_tpu_torch.ops.ntt import bit_reversal_perm
+        from constantine_tpu_torch.ops.ntt import bit_reversal_perm, get_domain
         from constantine_tpu_torch.models.verify_fused import get_verifier
         from constantine_tpu_torch.ops.cuda_g1 import get_cuda_g1
         from constantine_tpu_torch.ops.pairing import get_pairing
         from constantine_tpu_torch.utils import refmath as rm
         from constantine_tpu_torch.utils.serialization import (g1_compress_affine,
                                                                g1_decompress_host,
-                                                               parse_g1_host)
+                                                               parse_g1_host,
+                                                               scalars_from_bytes)
     except ImportError as e:
         print(f"the port is not beside this script ({e})", file=sys.stderr)
         return 2
-    for f in (GOLDEN, PROOF_GOLDEN):
+    for f in (GOLDEN, PROOF_GOLDEN, PEERDAS_GOLDEN):
         if not f.is_file():
             print(f"missing {f}", file=sys.stderr)
             return 2
@@ -434,9 +490,21 @@ def main():
     gt11 = eng.final_exp(f11)
     same((gt11,), (eng._final_exp_plain(f11),), "final_exp quick")
     check(bool(p12.eq(p12.mul(gt11[:1], gt11[1:]), one12).all()), "e(P, Q) e(-P, Q) != 1")
+    # K3' on (2, 16, 3) with 0, 1 and r - 1 lanes, every stage (w = 1 at k = 0)
+    fr = ctx.fr
+    xq = rand_fe(96, fr).reshape(2, 16, 3, fr.NL)
+    xq[0, 0, 0], xq[0, 1, 0], xq[1, 8, 2] = 0, fr.encode(1, dev), fr.encode(r - 1, dev)
+    for h in (1, 2, 4, 8):
+        twq = rand_fe(h, fr)
+        twq[0] = fr.encode(1, dev)
+        same((ntt_bfly(fr, xq, twq, h),), (ntt_bfly_plain(fr, xq, twq, h),),
+             f"ntt_bfly quick h={h}")
+    xt = xq.reshape(-1, fr.NL).contiguous()
+    same((ntt_twm(fr, xt, xt.flip(0).contiguous()),),
+         (mont_mul_plain(xt, xt.flip(0), fr),), "ntt_twm quick")
     print("quick checks: mont_mul (Fp, Fr), ec_add, ec_double_k, flush_scan, merge_scan, "
           "bucket_reduce, scaled_doubles, chain_fwd, fermat_inv, chain_bwd_inv (Fp, Fr), "
-          "g1_decompress, miller_loop, final_exp exact", flush=True)
+          "g1_decompress, miller_loop, final_exp, ntt_bfly, ntt_twm exact", flush=True)
 
     # ---- 2. the paths ---------------------------------------------------------------
     golden = json.loads(GOLDEN.read_text())
@@ -660,6 +728,106 @@ def main():
     report_path("verify_blob_kzg_proof_batch n = 64 (valid True, swapped False, F1 False, "
                 "with the zero blob True)", lat, 64e3, "blobs/s")
 
+    # i. compute_cells: zero blob, golden digests, two cells on the host
+    pd_golden = {e["seed"]: e for e in json.loads(PEERDAS_GOLDEN.read_text())["blobs"]}
+    brp12, brp13 = bit_reversal_perm(4096), bit_reversal_perm(8192)
+    host_cells = {i: host_cell(blobs["dense1"], i, ctx, brp12, brp13) for i in (5, 100)}
+    das_cells = peerdas.PeerDAS(get_settings("cuda"))       # no FK20 bank: cells only
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    check(peerdas.compute_cells(blobs["zero"], das_cells) == [bytes(2048)] * 128,
+          "compute_cells of the zero blob")
+    cells = {}
+    for seed, entry in pd_golden.items():
+        cells[seed] = peerdas.compute_cells(blobs[f"dense{seed}"], das_cells)
+        check(hashlib.sha256(b"".join(cells[seed])).hexdigest() == entry["cells_sha256"],
+              f"compute_cells of golden blob {seed}: digest differs")
+    for i, want_cell in host_cells.items():
+        check(cells[1][i] == want_cell, f"compute_cells: cell {i} differs from the host's")
+    before = build.launch_counts()
+    lat = host_ms(torch, lambda: peerdas.compute_cells(blobs["dense1"], das_cells), 5)
+    end_path("cells", before, 5)
+    report_path("compute_cells (zero blob, golden digests, host cells 5 and 100 match)", lat,
+                1e3, "blobs/s")
+
+    # j. compute_cells_and_kzg_proofs, with the PeerDAS setup
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    t0 = time.perf_counter()
+    get_settings("cuda").g1_monomial
+    srs_s = time.perf_counter() - t0
+    das = peerdas.get_peerdas("cuda")
+    torch.cuda.synchronize()
+    pd_setup_s = time.perf_counter() - t0
+    proofs = {}
+    for seed, entry in pd_golden.items():
+        got_cells, proofs[seed] = peerdas.compute_cells_and_kzg_proofs(blobs[f"dense{seed}"],
+                                                                       das)
+        check(got_cells == cells[seed], f"compute_cells_and_kzg_proofs of blob {seed}: cells")
+        bad = [i for i, (a, b) in enumerate(zip(proofs[seed], entry["proofs"]))
+               if a.hex() != b]
+        check(not bad, f"compute_cells_and_kzg_proofs of blob {seed}: proofs {bad[:8]} differ "
+                       "from the golden file")
+    zc, zp = peerdas.compute_cells_and_kzg_proofs(blobs["zero"], das)
+    check(zc == [bytes(2048)] * 128 and zp == [INF] * 128,
+          "compute_cells_and_kzg_proofs of the zero blob")
+    before = build.launch_counts()
+    lat = host_ms(torch, lambda: peerdas.compute_cells_and_kzg_proofs(blobs["dense1"], das), 3)
+    end_path("cells and proofs", before, 3)
+    print(f"PeerDAS setup: {pd_setup_s:.3f} s, of which the monomial SRS on the host "
+          f"{srs_s:.3f} s and the FK20 bank on the card {pd_setup_s - srs_s:.3f} s", flush=True)
+    report_path("compute_cells_and_kzg_proofs (golden proofs match, zero blob all infinity)",
+                lat, 1e3, "blobs/s")
+
+    # k. verify_cell_kzg_proof_batch at 128 cells
+    C1g, C2g = (bytes.fromhex(pg[s_]["commitment"]) for s_ in (1, 2))
+    all1 = ([C1g] * 128, list(range(128)), cells[1], proofs[1])
+    mixed_idx = list(range(0, 128, 2)) + list(range(1, 128, 2))
+    mixed = ([C1g] * 64 + [C2g] * 64, mixed_idx,
+             [cells[1][i] for i in mixed_idx[:64]] + [cells[2][i] for i in mixed_idx[64:]],
+             [proofs[1][i] for i in mixed_idx[:64]] + [proofs[2][i] for i in mixed_idx[64:]])
+    flipped = list(cells[1])
+    flipped[17] = flipped[17][:40] + bytes([flipped[17][40] ^ 1]) + flipped[17][41:]
+    swapped = [proofs[1][1], proofs[1][0]] + proofs[1][2:]
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    vc = peerdas.verify_cell_kzg_proof_batch
+    check(vc(*all1, das) is True, "verify_cell_kzg_proof_batch of golden blob 1")
+    check(vc(*mixed, das) is True, "verify_cell_kzg_proof_batch of 64 cells of each blob")
+    check(vc(all1[0], all1[1], flipped, all1[3], das) is False,
+          "verify_cell_kzg_proof_batch accepts a flipped cell byte")
+    check(vc(all1[0], all1[1], all1[2], swapped, das) is False,
+          "verify_cell_kzg_proof_batch accepts two swapped proofs")
+    check(vc([INF] * 128, list(range(128)), [bytes(2048)] * 128, [INF] * 128, das) is True,
+          "verify_cell_kzg_proof_batch of the zero blob's cells")
+    check(vc(all1[0], [128] + all1[1][1:], all1[2], all1[3], das) is None,
+          "verify_cell_kzg_proof_batch of index 128")
+    check(vc(all1[0], all1[1], [cells[1][0][:-1]] + cells[1][1:], all1[3], das) is None,
+          "verify_cell_kzg_proof_batch of a 2047-byte cell")
+    before = build.launch_counts()
+    lat = host_ms(torch, lambda: vc(*all1, das), 5)
+    end_path("verify cells", before, 5)
+    report_path("verify_cell_kzg_proof_batch of 128 cells (blob 1 True, 64 + 64 True, flipped "
+                "False, swapped False, zero blob True, index 128 and 2047 bytes None)", lat,
+                128e3, "cells/s")
+
+    # l. recover_cells_and_kzg_proofs
+    half_idx = list(range(0, 128, 2))
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    rc = peerdas.recover_cells_and_kzg_proofs
+    check(rc(half_idx, [cells[1][i] for i in half_idx], das) == (cells[1], proofs[1]),
+          "recover_cells_and_kzg_proofs from every other cell")
+    check(rc(list(range(128)), cells[1], das) == (cells[1], proofs[1]),
+          "recover_cells_and_kzg_proofs from all cells")
+    check(rc(half_idx[:63], [cells[1][i] for i in half_idx[:63]], das) is None,
+          "recover_cells_and_kzg_proofs from 63 cells")
+    before = build.launch_counts()
+    lat = host_ms(torch, lambda: rc(half_idx, [cells[1][i] for i in half_idx], das), 3)
+    end_path("recover", before, 3)
+    report_path("recover_cells_and_kzg_proofs from 64 cells (64 and 128 cells match path j, 63 "
+                "None)", lat, 1e3, "recoveries/s")
+
     for name in PATH_KERNELS:
         print(f"launches per call, {name}: {json.dumps(per_call[name])}", flush=True)
     total = {k: sum(c[k] for c in path_counts.values()) for k in build.KERNELS}
@@ -681,12 +849,23 @@ def main():
                  lambda: eip4844.verify_blob_kzg_proof(blobs["dense1"], C1, BP1, kzg))
     profile_call(torch, names, "verify batch 64",
                  lambda: eip4844.verify_blob_kzg_proof_batch(bblobs, bcs, bps, kzg))
+    profile_call(torch, names, "compute_cells",
+                 lambda: peerdas.compute_cells(blobs["dense1"], das_cells))
+    profile_call(torch, names, "FK20 bank (PeerDAS setup)",
+                 lambda: peerdas.PeerDAS(get_settings("cuda")).bank)
+    profile_call(torch, names, "compute_cells_and_kzg_proofs",
+                 lambda: peerdas.compute_cells_and_kzg_proofs(blobs["dense1"], das))
+    profile_call(torch, names, "verify_cell_kzg_proof_batch of 128",
+                 lambda: peerdas.verify_cell_kzg_proof_batch(*all1, das))
+    profile_call(torch, names, "recover from 64",
+                 lambda: peerdas.recover_cells_and_kzg_proofs(
+                     half_idx, [cells[1][i] for i in half_idx], das))
 
     # ---- 3. every kernel against its plain version at the paths' shapes --------
     report = {}
 
     def record(name, got, ref, kernel_fn, plain_fn, nbytes, nmuls, reps, label=None,
-               keep=True):
+               keep=True, mul_ops=MUL_OPS):
         label = label or name
         same(got, ref, label)
         ms = cuda_ms(torch, kernel_fn, reps)
@@ -695,7 +874,7 @@ def main():
         plain_fn()
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        bms, by = bound(nbytes, nmuls)
+        bms, by = bound(nbytes, nmuls, mul_ops)
         if keep:
             report[name] = dict(max_abs_err=max_abs_err(lb, got, ref), ms=ms,
                                 plain_ms=plain_ms, bound_ms=bms, bound_by=by)
@@ -932,6 +1111,64 @@ def main():
                keep=keep)
     check(bool(p12.eq(eng.final_exp(f1), p12.one((1,), dev)).all()),
           "the verify's pairing product is not one")
+    # K3' at every stage of the paths' transforms, each stage's input the
+    # transform's own: the blob's 4096 iNTT and its 8192 extension NTT (the
+    # four-step's column and row stages), the FK20 NTT over (64, 128) and the
+    # verify's cell iNTT over (128, 64) (radix-2); ntt_twm on both twiddle
+    # matrices. Kept in the kernels' line: the 8192 NTT's last column stage
+    # (1, 64, 128), h = 32, and its twiddle matrix.
+    fr = ctx.fr
+
+    def check_stages(label, y, tws, brp, keep_h=None):
+        y = y.index_select(1, brp)
+        for st, tw in enumerate(tws):
+            h = 1 << st
+            got = ntt_bfly(fr, y, tw, h)
+            if h == keep_h:
+                yk = y
+                nbytes, nmuls = 2 * yk.numel() * 4 + h * 4 * fr.NL, yk.numel() // (2 * fr.NL)
+                record("ntt_bfly", (got,), (ntt_bfly_plain(fr, yk, tw, h),),
+                       lambda: ntt_bfly(fr, yk, tw, h), lambda: ntt_bfly_plain(fr, yk, tw, h),
+                       nbytes, nmuls, reps=50, label=f"ntt_bfly {label} h={h}",
+                       mul_ops=FR_MUL_OPS, keep=label.startswith("8192"))
+            else:
+                same((got,), (ntt_bfly_plain(fr, y, tw, h),), f"ntt_bfly {label} h={h}")
+            y = got
+        return y
+
+    dom12, dom13 = get_domain("BLS12_381", 12), get_domain("BLS12_381", 13)
+    coeffs = das._blob_to_coeffs(blobs["dense1"])
+    evals = fr.to_mont(lb.to_tensor(eip4844.blob_to_polynomial(blobs["dense1"])[0], dev))
+    evals = evals.index_select(0, torch.as_tensor(brp12, device=dev))
+    for label, dom, x, inverse in (("4096 iNTT", dom12, evals, True),
+                                   ("8192 NTT", dom13, torch.cat([coeffs, torch.zeros_like(
+                                       coeffs)]), False)):
+        n1, n2, twm = dom._four_step_tables(inverse, dev)
+        tws = dom.twiddles(inverse, dev)
+        y = check_stages(f"{label} columns (1, {n1}, {n2})", x.reshape(1, n1, n2, fr.NL),
+                         tws[:n1.bit_length() - 1], torch.as_tensor(bit_reversal_perm(n1),
+                                                                     device=dev),
+                         keep_h=n1 // 2)
+        yt = y.reshape(-1, fr.NL)
+        record("ntt_twm", (ntt_twm(fr, yt, twm),), (mont_mul_plain(yt, twm, fr),),
+               lambda: ntt_twm(fr, yt, twm), lambda: mont_mul_plain(yt, twm, fr),
+               3 * yt.numel() * 4, yt.shape[0], reps=50, label=f"ntt_twm {label} n={dom.n}",
+               mul_ops=FR_MUL_OPS, keep=not inverse)
+        y = ntt_twm(fr, yt, twm).reshape(n1, n2, fr.NL).transpose(0, 1).contiguous()
+        y = check_stages(f"{label} rows (1, {n2}, {n1})", y.reshape(1, n2, n1, fr.NL),
+                         tws[:n2.bit_length() - 1], torch.as_tensor(bit_reversal_perm(n2),
+                                                                     device=dev))
+        check(torch.equal(dom._scale(y.reshape(-1, fr.NL), inverse), dom.ntt(x) if not inverse
+                          else dom.intt(x)), f"{label}: stages do not compose to the transform")
+    circ = coeffs.index_select(0, das._circ_idx).reshape(64, 128, fr.NL)
+    circ = torch.where(das._circ_mask[..., None], circ, torch.zeros_like(circ))
+    cell_evals = fr.to_mont(lb.to_tensor(np.concatenate(
+        [scalars_from_bytes(c)[0] for c in cells[1]]), dev)).reshape(128, 64, fr.NL)
+    for label, dom, x, inverse in (("FK20 NTT (64, 128, 1)", das.dom_cds, circ, False),
+                                   ("cell iNTT (128, 64, 1)", das.dom_cell, cell_evals, True)):
+        check_stages(label, x.reshape(x.shape[0], dom.n, 1, fr.NL), dom.twiddles(inverse, dev),
+                     torch.as_tensor(bit_reversal_perm(dom.n), device=dev), keep_h=dom.n // 2)
+
     pair_ms = cuda_ms(torch, lambda: pr.pairing(P256, Q256), 3)
     print(f"pairing B=256 (K11 + K12): {pair_ms:.3f} ms, {256e3 / pair_ms:.3f} pairings/s",
           flush=True)

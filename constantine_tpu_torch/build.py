@@ -31,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("field_kernels", "ec_kernels", "g1_kernels", "miller_loop", "final_exp")
+SOURCES = ("field_kernels", "ec_kernels", "g1_kernels", "miller_loop", "final_exp",
+           "ntt_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -213,6 +214,8 @@ KERNELS = {
         Kernel("g1_decompress", "g1_kernels", "ctt_g1_decompress", [P] * 5 + [I]),
         Kernel("miller_loop", "miller_loop", "ctt_miller_loop", [P] * 6 + [I]),
         Kernel("final_exp", "final_exp", "ctt_final_exp", [P] * 3 + [I]),
+        Kernel("ntt_bfly", "ntt_kernels", "ctt_ntt_bfly", [I, P, P, P, P, I, I, I, I]),
+        Kernel("ntt_twm", "ntt_kernels", "ctt_ntt_twm", [I, P, P, P, P, I]),
     )
 }
 

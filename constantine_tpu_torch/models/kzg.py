@@ -23,7 +23,21 @@ from ..ops import limbs as lb
 from ..ops.msm import msm
 from ..ops.msm_precomp import PrecomputedMSM
 from ..ops.ntt import bit_reversal_perm
-from .trusted_setup import FIELD_ELEMENTS_PER_BLOB, LOG_BLOB, KZGSettings
+from .trusted_setup import FIELD_ELEMENTS_PER_BLOB, LOG_BLOB, KZGSettings, get_settings
+
+
+def export_g1_points(ctx, P):
+    """Jacobian G1 points (B, NL) -> (B, NL+2) int32 [x canonical | y is
+    big | inf]: one batched inversion, and one copy to the host makes the
+    compressed bytes (``KZG.unpack_export``, ``g1_compress_canonical``)."""
+    fp = ctx.fp
+    (x, y), inf = ctx.g1.to_affine(P)
+    xc = fp.from_mont(x)
+    yc = fp.from_mont(y)
+    half = fp.from_int((fp.p_int + 1) // 2, xc.device)
+    big = lb.geq(yc, half)
+    return torch.cat([xc, big[..., None].to(torch.int32),
+                      inf[..., None].to(torch.int32)], -1)
 
 
 def _tree_sum(F, arr):
@@ -58,16 +72,7 @@ class KZG:
         return self._msm_srs(evals_brp_canonical)
 
     def _export(self, P):
-        """Jacobian points (B, NL) -> (B, NL+2) int32 [x canonical | y is
-        big | inf]."""
-        fp = self.ctx.fp
-        (x, y), inf = self.ctx.g1.to_affine(P)
-        xc = fp.from_mont(x)
-        yc = fp.from_mont(y)
-        half = fp.from_int((fp.p_int + 1) // 2, xc.device)
-        big = lb.geq(yc, half)
-        return torch.cat([xc, big[..., None].to(torch.int32),
-                          inf[..., None].to(torch.int32)], -1)
+        return export_g1_points(self.ctx, P)
 
     def export_g1(self, P):
         """Jacobian point -> (1, NL+2) int32 [x canonical | y is big | inf]."""
@@ -150,7 +155,7 @@ class KZG:
 
 @functools.lru_cache(maxsize=None)
 def _kzg_on(device: torch.device, precompute: bool) -> KZG:
-    return KZG(KZGSettings(device=device), precompute=precompute)
+    return KZG(get_settings(device), precompute=precompute)
 
 
 def get_kzg(device="cuda", precompute: bool = True) -> KZG:

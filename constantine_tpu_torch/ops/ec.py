@@ -6,14 +6,16 @@ infinity is any point with Z == 0, built as (1, 1, 0) in Montgomery form.
 ``double`` and ``add`` run the K3 kernels on CUDA tensors (through the
 planar layout of ``cuda_ec``) and their plain versions on CPU tensors;
 ``madd`` composes field ops (K1 on CUDA), as the reference's XLA group law
-did. G2 (``G2Group``, over the Fp2 tower): plain torch on either device,
-as the reference's XLA G2.
+did, and ``scalar_mul`` composes the K3 double and add per scalar bit, as
+the reference composes XLA ops. G2 (``G2Group``, over the Fp2 tower): plain
+torch on either device, as the reference's XLA G2.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import limbs as lb
 from .cuda_ec import CudaEC, ec_madd
 
 
@@ -96,6 +98,32 @@ class ECGroup:
     def madd(self, P, Q_aff):
         """Jacobian P + affine Q (madd-2007-bl, complete by selects)."""
         return ec_madd(self.F, self.F.mul, P, Q_aff)
+
+    # -- scalar multiplication ------------------------------------------------
+
+    def scalar_mul(self, scalar_limbs, P, scalar_bits: int = None):
+        """[k]P per lane: constant-time double-and-add, most significant bit
+        first, with a lane-wise select (the reference's scan).
+
+        scalar_limbs: (..., NL_r) canonical 32-bit limbs (not Montgomery),
+        broadcast against P's batch shape; scalar_bits bounds the scalars
+        (default all their limbs' bits). Every bit is one K3 double and one
+        K3 add over all lanes, in the kernels' planar layout throughout.
+        """
+        batch = torch.broadcast_shapes(P[0].shape[:-1], scalar_limbs.shape[:-1])
+        P = tuple(v.expand(batch + v.shape[-1:]) for v in P)
+        k = lb.widen(scalar_limbs.expand(batch + scalar_limbs.shape[-1:])
+                     .reshape(-1, scalar_limbs.shape[-1]))
+        nbits = scalar_bits or lb.LIMB_BITS * k.shape[1]
+        idx = torch.arange(nbits - 1, -1, -1, device=k.device)
+        bits = ((k[:, idx // lb.LIMB_BITS] >> (idx % lb.LIMB_BITS)) & 1).bool().T   # (nbits, n)
+        Pp, _ = _to_planar(P)
+        acc, _ = _to_planar(self.infinity(batch, P[0].device))
+        for bit in bits:
+            acc = self.pec.double(acc)
+            added = self.pec.add(acc, Pp)
+            acc = tuple(torch.where(bit, a2, a1) for a2, a1 in zip(added, acc))
+        return _from_planar(acc, batch)
 
 
 class G2Group:

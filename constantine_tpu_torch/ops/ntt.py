@@ -1,9 +1,37 @@
-"""Evaluation-domain helpers (the ``bit_reversal_perm`` of
-``constantine_tpu/ops/ntt.py``; the NTT itself is ROADMAP.md slice 3)."""
+"""Number-theoretic transform (radix-2 FFT over Fr), batched.
+
+Counterpart of ``constantine_tpu/ops/ntt.py``: ``bit_reversal_perm``,
+``NTTDomain`` (per-stage twiddle tables, ``ntt``/``intt`` natural order in
+and out, ``brp_permute``, ``coset_ntt``/``coset_intt`` with the shift
+powers cached per shift) and ``get_domain``. Elements are (..., n, NL)
+Montgomery Fr tensors.
+
+Two routes, as the reference chooses them (its :208-214, minus the backend
+test and the ``CTT_NTT_PALLAS`` switch): a 2-D input with n >= 1024 takes
+the Bailey four-step (column transforms of size n1 along the middle axis,
+the twiddle matrix, one transpose, row transforms of size n2); anything
+else, batched inputs and the coset transforms included, the radix-2 DIT.
+Every stage of both is one K3′ ``ntt_bfly`` call and the twiddle matrix
+one ``ntt_twm`` call (``cuda_ntt.py``: the kernels on CUDA tensors, their
+plain versions on CPU tensors); the bit reversal is one gather and the
+1/n scaling one K1 multiply.
+
+Tables are built here from python ints in the port's (m, NL) 32-bit
+Montgomery form. The four-step's column and row stages reuse the radix-2
+stage tables: stage s of a size-n1 transform with root w^n2 has twiddles
+(w^n2)^((n1/2^(s+1)) k) = w^((n/2^(s+1)) k), stage s's table of the size-n
+transform (likewise for the rows).
+"""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
+
+from . import limbs as lb
+from .cuda_ntt import ntt_bfly, ntt_twm
 
 
 def bit_reversal_perm(n: int) -> np.ndarray:
@@ -14,3 +42,166 @@ def bit_reversal_perm(n: int) -> np.ndarray:
     for b in range(k):
         rev |= ((idx >> b) & 1) << (k - 1 - b)
     return rev
+
+
+def _powers(w: int, count: int, p: int) -> list:
+    out, cur = [], 1
+    for _ in range(count):
+        out.append(cur)
+        cur = cur * w % p
+    return out
+
+
+class NTTDomain:
+    """Radix-2 evaluation domain of size 2^log_n over a scalar field F."""
+
+    FOUR_STEP_MIN = 1024
+
+    def __init__(self, F, omega: int, log_n: int):
+        self.F = F
+        self.log_n = log_n
+        self.n = n = 1 << log_n
+        self.omega = omega
+        p = F.p_int
+        if pow(omega, n, p) != 1 or (n > 1 and pow(omega, n // 2, p) == 1):
+            raise ValueError(f"omega is not a primitive 2^{log_n}-th root of unity")
+        w_pows = _powers(omega, n // 2, p)
+        wi_pows = _powers(pow(omega, -1, p), n // 2, p)
+        enc = functools.partial(self._encode_host, F)
+        # stage s (m = 2^(s+1)) twiddles: omega^((n/m) k), k < m/2
+        self._tw = {False: [enc([w_pows[(n >> (s + 1)) * k] for k in range(1 << s)])
+                            for s in range(log_n)],
+                    True: [enc([wi_pows[(n >> (s + 1)) * k] for k in range(1 << s)])
+                           for s in range(log_n)]}
+        self.brp = bit_reversal_perm(n)
+        self._n_inv = enc([pow(n, -1, p)])[0]
+        self.domain_int = _powers(omega, n, p)
+        self._host_fs = {}
+        self._shift = {}
+        self._dev = {}
+
+    @staticmethod
+    def _encode_host(F, ints) -> np.ndarray:
+        """Python ints -> (len, NL) uint32 Montgomery limbs."""
+        return lb.ints_to_limbs([v * F.R_int % F.p_int for v in ints], F.NL)
+
+    def _on(self, device, key, make):
+        """A host table as a tensor on `device`, made once per device."""
+        device = torch.device(device)
+        slot = self._dev.setdefault(device, {})
+        if key not in slot:
+            slot[key] = make(device)
+        return slot[key]
+
+    def twiddles(self, inverse: bool, device):
+        """The per-stage tables [(2^s, NL)] on `device`."""
+        return self._on(device, ("tw", inverse),
+                        lambda d: [lb.to_tensor(t, d) for t in self._tw[inverse]])
+
+    def _brp_index(self, n: int, device):
+        return self._on(device, ("brp", n),
+                        lambda d: torch.as_tensor(bit_reversal_perm(n), device=d))
+
+    def n_inv(self, device):
+        return self._on(device, "n_inv", lambda d: lb.to_tensor(self._n_inv, d))
+
+    # -- radix-2 DIT --------------------------------------------------------------
+
+    def _stages(self, y, tws, brp):
+        """Bit-reverse axis 1 of y (B, ns, lanes, NL), then one K3′ stage per
+        table, in place on the gathered copy."""
+        y = y.index_select(1, brp)
+        for s, tw in enumerate(tws):
+            y = ntt_bfly(self.F, y, tw, 1 << s, out=y)
+        return y
+
+    def _scale(self, y, inverse):
+        return self.F.mul(y, self.n_inv(y.device)) if inverse else y
+
+    def _transform(self, x, inverse: bool):
+        """Radix-2 DIT over axis -2 of x (..., n, NL): natural order in and out."""
+        if x.shape[-2:] != (self.n, self.F.NL):
+            raise ValueError(f"NTT of size {self.n} over {tuple(x.shape)}")
+        dev = x.device
+        y = x.reshape(-1, self.n, 1, self.F.NL)
+        y = self._stages(y, self.twiddles(inverse, dev), self._brp_index(self.n, dev))
+        return self._scale(y.reshape(x.shape), inverse)
+
+    # -- Bailey four-step (the reference's Pallas route) -----------------------------
+
+    def _four_step_tables(self, inverse: bool, device):
+        """(n1, n2, twiddle matrix (n1*n2, NL) w^(k1 i2)) on `device`."""
+        if inverse not in self._host_fs:
+            F, p = self.F, self.F.p_int
+            n1 = 1 << (self.log_n // 2)
+            n2 = self.n // n1
+            w = pow(self.omega, -1, p) if inverse else self.omega
+            vals = []
+            for k1 in range(n1):
+                vals.extend(_powers(pow(w, k1, p), n2, p))
+            self._host_fs[inverse] = (n1, n2, self._encode_host(F, vals))
+        n1, n2, twm = self._host_fs[inverse]
+        return n1, n2, self._on(device, ("twm", inverse), lambda d: lb.to_tensor(twm, d))
+
+    def _transform_four_step(self, x, inverse: bool):
+        """x (n, NL): read as (n1, n2) with i = i1·n2 + i2; column NTTs of
+        size n1 over the n2 lanes; the twiddle matrix; one transpose; row
+        NTTs of size n2 over the n1 lanes; written out as k = k2·n1 + k1."""
+        F, n, dev = self.F, self.n, x.device
+        n1, n2, twm = self._four_step_tables(inverse, dev)
+        tws = self.twiddles(inverse, dev)
+        y = self._stages(x.reshape(1, n1, n2, F.NL), tws[:n1.bit_length() - 1],
+                         self._brp_index(n1, dev))
+        y = ntt_twm(F, y.reshape(n, F.NL), twm)
+        y = y.reshape(n1, n2, F.NL).transpose(0, 1).contiguous().reshape(1, n2, n1, F.NL)
+        y = self._stages(y, tws[:n2.bit_length() - 1], self._brp_index(n2, dev))
+        return self._scale(y.reshape(n, F.NL), inverse)
+
+    def _use_four_step(self, x) -> bool:
+        return x.dim() == 2 and self.n >= self.FOUR_STEP_MIN
+
+    def ntt(self, x):
+        """Forward NTT, natural -> natural."""
+        if self._use_four_step(x):
+            return self._transform_four_step(x, False)
+        return self._transform(x, False)
+
+    def intt(self, x):
+        """Inverse NTT, natural -> natural."""
+        if self._use_four_step(x):
+            return self._transform_four_step(x, True)
+        return self._transform(x, True)
+
+    def brp_permute(self, x):
+        """Bit-reversal permute along the element axis (axis -2)."""
+        return x.index_select(x.dim() - 2, self._brp_index(self.n, x.device))
+
+    # -- coset (shifted-domain) transforms -------------------------------------------
+
+    def _shift_powers(self, shift: int, inverse: bool, device):
+        """(n, NL) Montgomery s^i (s = shift, or its inverse), i < n, built
+        on the host once per shift and kept on each device."""
+        key = ("shift", shift, inverse)
+        if key not in self._shift:
+            p = self.F.p_int
+            s = pow(shift, -1, p) if inverse else shift
+            self._shift[key] = self._encode_host(self.F, _powers(s, self.n, p))
+        return self._on(device, key, lambda d: lb.to_tensor(self._shift[key], d))
+
+    def coset_ntt(self, coeffs, shift: int):
+        """Evaluate a polynomial (coefficient form) on the coset shift·<omega>:
+        scale coeff_i by shift^i, then the radix-2 NTT."""
+        return self._transform(
+            self.F.mul(coeffs, self._shift_powers(shift, False, coeffs.device)), False)
+
+    def coset_intt(self, evals, shift: int):
+        """Inverse: interpolate over the coset, return coefficients."""
+        coeffs = self._transform(evals, True)
+        return self.F.mul(coeffs, self._shift_powers(shift, True, evals.device))
+
+
+@functools.lru_cache(maxsize=None)
+def get_domain(curve_name: str, log_n: int) -> NTTDomain:
+    from ..named.precompute import get_curve
+    ctx = get_curve(curve_name)
+    return NTTDomain(ctx.fr, ctx.root_of_unity(log_n), log_n)
