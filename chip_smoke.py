@@ -49,19 +49,25 @@
       one off it (cell 100); 5 timed;
    j. compute_cells_and_kzg_proofs: the PeerDAS setup (monomial SRS, FK20
       bank on the card) timed; the golden blobs' 128 proofs byte-equal to
-      the golden file, the zero blob's all infinity; 3 timed;
+      the golden file, the zero blob's all infinity; 3 timed, each FK20 call
+      launching ec_scalar_mul 16 times, ec_add 34 and ec_double_k never;
    k. verify_cell_kzg_proof_batch at 128 cells: all of golden blob 1 True;
       64 of each golden blob (two commitments) True; a flipped cell byte
       False; two proofs swapped False; the zero blob's cells with infinity
       commitment and proofs True; index 128 or a 2047-byte cell None; 5 timed;
    l. recover_cells_and_kzg_proofs from every other cell and from all 128:
-      cells and proofs equal to path j's; from 63 cells None; 3 timed.
+      cells and proofs equal to path j's; from 63 cells None; 3 timed, with
+      path j's launches per call.
    Every kernel must have launched over the paths.
 3. Holds every kernel against its plain version on the card at the paths'
    shapes (K4-K6 on both the fixed-base and the online commit's streams;
    K13 at 2 and 128 lanes, K11 at 2 and 256 pairs, K12 at 1 and 256
    lanes, K3' at every stage of the 4096 iNTT and 8192 NTT (four-step),
-   the (64, 128) FK20 NTT and the (128, 64) cell iNTT), with hand-built
+   the (64, 128) FK20 NTT and the (128, 64) cell iNTT; ec_scalar_mul at 64
+   lanes x 255 bits with k = 0, 1, r - 1, r, r + 2 and a point at infinity,
+   at 1/n's 128 lanes, a bank stage's 4,096 and the Hadamard product's
+   8,192, and against the per-bit K3 composition at an EC-FFT stage's 64
+   lanes and the Hadamard product's 8,192), with hand-built
    degenerate lanes (P == Q, P == -Q, infinity, padding keys): exact
    equality. Times both, and computes each kernel's
    bound from the bytes it must move and the multiplies it must do on these
@@ -109,6 +115,7 @@ REPLACES = {
     "mont_mul": (FIELD_SRC, "constantine_tpu/ops/pallas_field.py:89"),
     "ec_add": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:543"),
     "ec_double_k": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:543"),
+    "ec_scalar_mul": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:543"),
     "flush_scan": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:745"),
     "merge_scan": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:828"),
     "bucket_reduce": (EC_SRC, "constantine_tpu/ops/pallas_ec.py:910"),
@@ -131,11 +138,18 @@ PIPELINE = ("mont_mul", "ec_add", "ec_double_k", "flush_scan", "merge_scan", "bu
 # with K13, adds table points with K3 and runs the pairing (K11, K12); the
 # blob verifies evaluate through the chains; the batch folds with two online
 # MSMs; compute_cells runs two four-step transforms (K3', K1 for the
-# Montgomery conversions and 1/n); FK20 adds the batched radix-2 NTT and the
-# scalar multiplications (K3 double and add) and compresses through K9; the
+# Montgomery conversions and 1/n); FK20 adds the batched radix-2 NTT, the
+# scalar multiplications (ec_scalar_mul, one launch each) and the EC-FFT
+# butterflies and tree (K3 add), and compresses through K9; the
 # cell verify decompresses with K13, runs the cell iNTT, two online MSMs and
 # the pairing; recovery adds the coset transforms and Fr inversions (K8-K10)
 PAIRING = ("mont_mul", "ec_add", "fermat_inv", "g1_decompress", "miller_loop", "final_exp")
+# an FK20 call (paths j and l): 16 scalar multiplications (the Hadamard
+# product, 7 + 1 of the inverse EC-FFT, 7 of the EC-FFT), 28 butterfly adds
+# and 6 tree levels
+FK20_LAUNCHES = {"ec_scalar_mul": 16, "ec_add": 34, "ec_double_k": 0}
+# products a bit of ec_scalar_mul's ladder (double 7, add 14)
+LADDER_MULS = 21
 CHAINS = ("chain_fwd", "fermat_inv", "chain_bwd_inv")
 
 
@@ -153,10 +167,10 @@ PATH_KERNELS = {
     "verify blob": _union(PAIRING, CHAINS),
     "verify batch 64": _union(PIPELINE, ("scaled_doubles",), CHAINS, PAIRING),
     "cells": ("mont_mul", "ntt_bfly", "ntt_twm"),
-    "cells and proofs": ("mont_mul", "ntt_bfly", "ntt_twm", "ec_add", "ec_double_k",
+    "cells and proofs": ("mont_mul", "ntt_bfly", "ntt_twm", "ec_add", "ec_scalar_mul",
                          "fermat_inv"),
     "verify cells": _union(PIPELINE, ("scaled_doubles", "ntt_bfly"), PAIRING),
-    "recover": _union(("mont_mul", "ntt_bfly", "ntt_twm", "ec_add", "ec_double_k"), CHAINS),
+    "recover": _union(("mont_mul", "ntt_bfly", "ntt_twm", "ec_add", "ec_scalar_mul"), CHAINS),
 }
 
 
@@ -830,6 +844,9 @@ def main():
 
     for name in PATH_KERNELS:
         print(f"launches per call, {name}: {json.dumps(per_call[name])}", flush=True)
+    for name in ("cells and proofs", "recover"):
+        got = {k: per_call[name][k] for k in FK20_LAUNCHES}
+        check(got == FK20_LAUNCHES, f"{name}: launches per call {got}, not {FK20_LAUNCHES}")
     total = {k: sum(c[k] for c in path_counts.values()) for k in build.KERNELS}
     check(all(v > 0 for v in total.values()), f"a kernel never launched: {total}")
 
@@ -1168,6 +1185,82 @@ def main():
                                    ("cell iNTT (128, 64, 1)", das.dom_cell, cell_evals, True)):
         check_stages(label, x.reshape(x.shape[0], dom.n, 1, fr.NL), dom.twiddles(inverse, dev),
                      torch.as_tensor(bit_reversal_perm(dom.n), device=dev), keep_h=dom.n // 2)
+
+    # ec_scalar_mul over 255 bits, inputs from this run's FK20: at 64 lanes
+    # (an EC-FFT stage's width) against the plain ladder, on bank points with
+    # k = 0, 1, r - 1, r (its last add is D + (-D)), r + 2 (its last add
+    # doubles) and a point at infinity among seeded scalars; against the
+    # plain ladder also at the main path's other shapes: 1/n over 128 bank
+    # points, a bank stage (its 64 twiddles over 64 columns, 4,096 lanes)
+    # and the Hadamard product (the NTT's 8,192 scalars times the bank);
+    # against the per-bit K3 composition (double, add, select) at the
+    # inverse EC-FFT's last stage (its 64 twiddles, 64 bank points) and at
+    # the Hadamard product; timed at 64, 128, 4,096 and 8,192 lanes beside
+    # the composition at 64.
+    def k3_ladder(k, P, nbits):
+        kw = lb.widen(k)
+        idx = torch.arange(nbits - 1, -1, -1, device=dev)
+        bits = ((kw[idx // 32] >> (idx % 32)[:, None]) & 1).bool()
+        one = F.broadcast_one((k.shape[1],), dev).T.contiguous()
+        acc = (one, one.clone(), torch.zeros_like(one))
+        for bit in bits:
+            acc = pec.double(acc)
+            added = pec.add(acc, P)
+            acc = tuple(torch.where(bit, a2, a1) for a2, a1 in zip(added, acc))
+        return acc
+
+    bankp = tuple(t.reshape(-1, NL).T.contiguous() for t in das.bank)          # (NL, 8192)
+    w_had = fr.from_mont(das.dom_cds.ntt(circ)).reshape(-1, fr.NL).T.contiguous()
+    srng = np.random.default_rng(64)
+    ks64 = [0, 1, r - 1, r, r + 2] + [int.from_bytes(srng.bytes(32), "big") >> 1
+                                      for _ in range(59)]
+    k64 = lb.to_tensor(lb.ints_to_limbs(ks64, fr.NL), dev).T.contiguous()
+    P64 = tuple(v[:, :64].clone() for v in bankp)
+    P64[2][:, 5] = 0
+
+    def ladder_work(n):
+        """Bytes (points and scalars in, points out) and multiplies of n lanes,
+        two of a lane's for its point's Z^2 and Z^3."""
+        return n * (6 * FE_BYTES + 4 * fr.NL), n * (LADDER_MULS * 255 + 2)
+
+    got64 = pec.scalar_mul(k64, P64, 255)
+    record("ec_scalar_mul", got64, pec._scalar_mul_plain(k64, P64, 255),
+           lambda: pec.scalar_mul(k64, P64, 255), lambda: pec._scalar_mul_plain(k64, P64, 255),
+           *ladder_work(64), reps=20, label="ec_scalar_mul 64 lanes x 255 bits (degenerate lanes)")
+    lanes64 = [affine(tuple(v[i] for v in std(got64))) for i in range(6)]
+    p1, p2, p4 = (affine(tuple(v[i] for v in std(P64))) for i in (1, 2, 4))
+    check(lanes64 == [None, p1, rm.ec_neg(p2, ctx.p), None, rm.ec_mul(2, p4, 0, ctx.p), None],
+          "ec_scalar_mul: [0]P, [1]P, [r-1]P, [r]P, [r+2]P, [k]inf")
+    tws, n_inv, _ = das.ec_cds._tables(dev)
+    kst = tws[True][-1].T.contiguous()
+    Pst = tuple(v[:, 64:128].contiguous() for v in bankp)
+    for label, kn, Pn in (
+            ("1/n (128 lanes)", n_inv[:, None].expand(-1, 128).contiguous(),
+             tuple(v[:, 128:256].contiguous() for v in bankp)),
+            ("bank stage (4,096 lanes)", tws[False][-1].T.repeat_interleave(64, 1).contiguous(),
+             tuple(v[:, :4096].contiguous() for v in bankp)),
+            ("FK20 Hadamard (8,192 lanes)", w_had, bankp)):
+        same(pec.scalar_mul(kn, Pn, 255), pec._scalar_mul_plain(kn, Pn, 255),
+             f"ec_scalar_mul against the plain ladder, {label}")
+    print("check ec_scalar_mul against the plain ladder at 128, 4,096 and 8,192 lanes: exact",
+          flush=True)
+    same(pec.scalar_mul(kst, Pst, 255), k3_ladder(kst, Pst, 255),
+         "ec_scalar_mul against the K3 composition, EC-FFT stage (64 lanes)")
+    same(pec.scalar_mul(w_had, bankp, 255), k3_ladder(w_had, bankp, 255),
+         "ec_scalar_mul against the K3 composition, FK20 Hadamard (8,192 lanes)")
+    print("check ec_scalar_mul against the K3 composition at 64 and 8,192 lanes: exact",
+          flush=True)
+    sm_ms = {64: report["ec_scalar_mul"]["ms"]}
+    for n in (128, 4096, 8192):
+        kn, Pn = w_had[:, :n].contiguous(), tuple(v[:, :n].contiguous() for v in bankp)
+        sm_ms[n] = cuda_ms(torch, lambda: pec.scalar_mul(kn, Pn, 255), 5)
+    k3_ms = cuda_ms(torch, lambda: k3_ladder(kst, Pst, 255), 3)
+    for n, ms in sm_ms.items():
+        bms, by = bound(*ladder_work(n))
+        print(f"ec_scalar_mul {n} lanes x 255 bits: {ms:.4f} ms a call (CUDA events), bound "
+              f"{bms:.6f} ms ({by})", flush=True)
+    print(f"the per-bit K3 composition it replaces, 64 lanes x 255 bits: {k3_ms:.4f} ms a call "
+          f"(CUDA events)", flush=True)
 
     pair_ms = cuda_ms(torch, lambda: pr.pairing(P256, Q256), 3)
     print(f"pairing B=256 (K11 + K12): {pair_ms:.3f} ms, {256e3 / pair_ms:.3f} pairings/s",

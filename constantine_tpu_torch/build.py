@@ -203,6 +203,7 @@ KERNELS = {
         Kernel("mont_mul", "field_kernels", "ctt_mont_mul", [I, P, P, P, P, I]),
         Kernel("ec_add", "ec_kernels", "ctt_ec_add", [P] + [P] * 9 + [I]),
         Kernel("ec_double_k", "ec_kernels", "ctt_ec_double_k", [P] + [P] * 6 + [I, I]),
+        Kernel("ec_scalar_mul", "ec_kernels", "ctt_ec_scalar_mul", [P] + [P] * 7 + [I, I]),
         Kernel("flush_scan", "ec_kernels", "ctt_flush_scan", [P, P, P, P, P, P, I, I]),
         Kernel("merge_scan", "ec_kernels", "ctt_merge_scan", [P] + [P] * 7 + [I, I]),
         Kernel("bucket_reduce", "ec_kernels", "ctt_bucket_reduce", [P] + [P] * 9 + [I, I]),

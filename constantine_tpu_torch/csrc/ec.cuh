@@ -4,7 +4,10 @@
 // the TPU kernels inline: Montgomery multiply, add/sub/double mod p, and the
 // a = 0 Jacobian group law ec_double (dbl-2009-l), ec_madd (madd-2007-bl)
 // and ec_add (add-2007-bl), with the same formulas and the same degenerate-
-// case selects as the reference, so every output is limb-identical.
+// case selects as the reference, so every output is limb-identical. Below
+// them, the scalar-multiplication ladder of ec_scalar_mul: the same group
+// law in levels of independent products for a team of threads, over its
+// own two-chain multiply fe_mul_eo.
 //
 // Layout: an element is N little-endian 32-bit limbs in Montgomery form with
 // R = 2^(32N) -- the reference's R, since its 16-bit digits pair into these
@@ -24,6 +27,7 @@
 // replaces the PTX), which is how the tests check it without a card.
 #pragma once
 
+#include <stddef.h>
 #include <stdint.h>
 
 #if defined(__CUDACC__)
@@ -258,6 +262,195 @@ CTT_HD Fe<N> fe_sq(const Fe<N>& a, const Mod<N>& M) {
   return fe_mul<N>(a, a, M);
 }
 
+// -- fe_mul_eo: the same product over two carry chains ---------------------
+//
+// Only the scalar-multiplication ladder below calls it. fe_mul's CIOS row is
+// one chain of 4N dependent carry instructions. Here the row's products
+// a[j] * b[i] are split by the parity of j (sppark's mont_t layout): the
+// even j fill words (j, j+1) of an accumulator `ev` without overlapping,
+// the odd j words (j-1, j) of `od`, which stands one word higher, so each
+// half is a chain of N instructions independent of the other; the same
+// for m * p. The value is ev + 2^32 od; dividing by 2^32 after a row swaps
+// the two roles and shifts the old `ev` down two words inside the next
+// row's odd chain. The bound p < 2^(32N-2) keeps every partial sum below
+// 2^(32(N+1)), so `od` never carries out of its top word. Returns the
+// canonical a * b * R^-1 mod p, the limbs of fe_mul.
+//
+// The carry flag: PTX's CC on the device (the asm is volatile, so the
+// compiler keeps each chain in order), a variable on the host.
+struct Cc {
+  uint32_t c = 0;
+};
+
+CTT_HD uint32_t mad_lo_cc(Cc& f, uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  uint32_t r;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+#else
+  const uint64_t s = (uint64_t)(uint32_t)(a * b) + c;
+  f.c = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+#endif
+}
+
+CTT_HD uint32_t madc_lo_cc(Cc& f, uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  uint32_t r;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+#else
+  const uint64_t s = (uint64_t)(uint32_t)(a * b) + c + f.c;
+  f.c = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+#endif
+}
+
+CTT_HD uint32_t madc_hi_cc(Cc& f, uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  uint32_t r;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+#else
+  const uint64_t s = (((uint64_t)a * b) >> 32) + c + f.c;
+  f.c = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+#endif
+}
+
+CTT_HD uint32_t madc_hi(Cc& f, uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+  uint32_t r;
+  asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+#else
+  return (uint32_t)((((uint64_t)a * b) >> 32) + c + f.c);
+#endif
+}
+
+CTT_HD uint32_t add_cc(Cc& f, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+#else
+  const uint64_t s = (uint64_t)a + b;
+  f.c = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+#endif
+}
+
+CTT_HD uint32_t addc_cc(Cc& f, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+#else
+  const uint64_t s = (uint64_t)a + b + f.c;
+  f.c = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+#endif
+}
+
+CTT_HD uint32_t addc(Cc& f, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+#else
+  return a + b + f.c;
+#endif
+}
+
+// ev += m * p[even j], od += m * p[odd j], m clearing ev[0].
+template <int N>
+CTT_HD void eo_redc(Cc& f, uint32_t* ev, uint32_t* od, const Mod<N>& M) {
+  const uint32_t m = ev[0] * M.m0;
+  od[0] = mad_lo_cc(f, M.p[1], m, od[0]);
+  od[1] = madc_hi_cc(f, M.p[1], m, od[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    od[j] = madc_lo_cc(f, M.p[j + 1], m, od[j]);
+    od[j + 1] = madc_hi_cc(f, M.p[j + 1], m, od[j + 1]);
+  }
+  ev[0] = mad_lo_cc(f, M.p[0], m, ev[0]);
+  ev[1] = madc_hi_cc(f, M.p[0], m, ev[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    ev[j] = madc_lo_cc(f, M.p[j], m, ev[j]);
+    ev[j + 1] = madc_hi_cc(f, M.p[j], m, ev[j + 1]);
+  }
+  od[N - 1] = addc(f, od[N - 1], 0);
+}
+
+// One row after the first: ev is the last row's od, od its ev (ev[0] = 0).
+template <int N>
+CTT_HD void eo_row(Cc& f, uint32_t* ev, uint32_t* od, const uint32_t* a, uint32_t bi,
+                   const Mod<N>& M) {
+  ev[0] = add_cc(f, ev[0], od[1]);
+#pragma unroll
+  for (int j = 0; j < N - 2; j += 2) {
+    od[j] = madc_lo_cc(f, a[j + 1], bi, od[j + 2]);
+    od[j + 1] = madc_hi_cc(f, a[j + 1], bi, od[j + 3]);
+  }
+  od[N - 2] = madc_lo_cc(f, a[N - 1], bi, 0);
+  od[N - 1] = madc_hi(f, a[N - 1], bi, 0);
+  ev[0] = mad_lo_cc(f, a[0], bi, ev[0]);
+  ev[1] = madc_hi_cc(f, a[0], bi, ev[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    ev[j] = madc_lo_cc(f, a[j], bi, ev[j]);
+    ev[j + 1] = madc_hi_cc(f, a[j], bi, ev[j + 1]);
+  }
+  od[N - 1] = addc(f, od[N - 1], 0);
+  eo_redc<N>(f, ev, od, M);
+}
+
+template <int N>
+CTT_HD Fe<N> fe_mul_eo(const Fe<N>& a, const Fe<N>& b, const Mod<N>& M) {
+  static_assert(N % 2 == 0, "the even/odd split takes an even limb count");
+  uint32_t ev[N], od[N];
+  Cc f;
+  const uint32_t b0 = b.v[0];
+#pragma unroll
+  for (int j = 0; j < N; j += 2) {
+    ev[j] = a.v[j] * b0;
+    ev[j + 1] = (uint32_t)(((uint64_t)a.v[j] * b0) >> 32);
+    od[j] = a.v[j + 1] * b0;
+    od[j + 1] = (uint32_t)(((uint64_t)a.v[j + 1] * b0) >> 32);
+  }
+  eo_redc<N>(f, ev, od, M);
+#pragma unroll
+  for (int i = 1; i < N; i += 2) {
+    eo_row<N>(f, od, ev, a.v, b.v[i], M);
+    if (i + 1 < N) eo_row<N>(f, ev, od, a.v, b.v[i + 1], M);
+  }
+  // the last row left its value in od + 2^32 ev with od[0] = 0
+  Fe<N> r, d;
+  r.v[0] = add_cc(f, ev[0], od[1]);
+#pragma unroll
+  for (int j = 1; j < N - 1; ++j) r.v[j] = addc_cc(f, ev[j], od[j + 1]);
+  r.v[N - 1] = addc(f, ev[N - 1], 0);
+  // r < 2p: subtract p once if it fits
+  uint32_t borrow;
+#if defined(__CUDA_ARCH__)
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(d.v[0]) : "r"(r.v[0]), "r"(M.p[0]));
+#pragma unroll
+  for (int i = 1; i < N; ++i)
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(d.v[i]) : "r"(r.v[i]), "r"(M.p[i]));
+  asm volatile("subc.u32 %0, 0, 0;" : "=r"(borrow));
+#else
+  uint64_t br = 0;
+  for (int i = 0; i < N; ++i) {
+    const uint64_t x = (uint64_t)r.v[i] - M.p[i] - br;
+    d.v[i] = (uint32_t)x;
+    br = x >> 63;
+  }
+  borrow = (uint32_t)br;
+#endif
+  return fe_sel<N>(borrow == 0, d, r);
+}
+
 // -- a = 0 short-Weierstrass group law, Jacobian coordinates ---------------
 
 template <int N>
@@ -341,6 +534,152 @@ CTT_HD Jac<N> ec_add(const Jac<N>& P, const Jac<N>& Q, const Mod<N>& M) {
   O.Z = fe_mul<N>(fe_sub<N>(fe_sub<N>(fe_sq<N>(fe_add<N>(P.Z, Q.Z, M), M), Z1Z1, M),
                             Z2Z2, M), H, M);
   return O;
+}
+
+
+template <int N>
+CTT_HD Jac<N> jac_sel(bool c, const Jac<N>& a, const Jac<N>& b) {
+  return Jac<N>{fe_sel<N>(c, a.X, b.X), fe_sel<N>(c, a.Y, b.Y), fe_sel<N>(c, a.Z, b.Z)};
+}
+
+// -- [k]Q in one launch: the ladder's step for a team of threads per lane ---
+//
+// ec_scalar_mul (ec_kernels.cu) walks every bit of k with the accumulator
+// on chip. A bit is ec_double of the accumulator, then ec_add of Q, then a
+// branch-free select on the bit: the operations of ec_double and ec_add, so
+// the Jacobian limbs equal the per-bit K3 loop's. One thread runs that as a
+// chain of 23 dependent multiplies a bit. Here the bit's 21 products (the
+// add's S1 = Y1 Z2^3 uses Q's Z^3, computed once a lane) fall into 7 levels
+// of independent products, and a team of T threads computes a level's
+// products side by side while every member repeats the cheap linear
+// operations: at T = 4 the chain is 7 multiplies a bit.
+//
+// A team type has T, rank, put(p) (this member's product of the round,
+// then wait for the team), get(j) (product j < T of the round) and next().
+
+// The team of one: ec_host.cpp's g++ build of the ladder.
+template <int N>
+struct Solo {
+  static constexpr int T = 1;
+  int rank = 0;
+  Fe<N> last;
+  CTT_HD void put(const Fe<N>& p) { last = p; }
+  CTT_HD Fe<N> get(int) const { return last; }
+  CTT_HD void next() {}
+};
+
+// out[i] = a[i] * b[i] for the K independent products of one level: member
+// r computes products r, r + T, ... (a member without one repeats the
+// round's first), and every member gets them all.
+template <int N, int K, class Team>
+CTT_HD void mul_level(Team& tm, const Fe<N> (&a)[K], const Fe<N> (&b)[K], Fe<N> (&out)[K],
+                      const Mod<N>& M) {
+#pragma unroll
+  for (int r0 = 0; r0 < K; r0 += Team::T) {
+    Fe<N> x = a[r0], y = b[r0];
+#pragma unroll
+    for (int j = 1; j < Team::T; ++j) {
+      const int i = r0 + j < K ? r0 + j : r0;
+      x = fe_sel<N>(tm.rank == j, a[i], x);
+      y = fe_sel<N>(tm.rank == j, b[i], y);
+    }
+    tm.put(fe_mul_eo<N>(x, y, M));
+#pragma unroll
+    for (int j = 0; j < Team::T; ++j)
+      if (r0 + j < K) out[r0 + j] = tm.get(j);
+    tm.next();
+  }
+}
+
+// ec_double in 4 levels: X^2, Y^2, Y Z | B^2, (X + B)^2 | E^2 | E (D - X3).
+template <int N, class Team>
+CTT_HD Jac<N> ec_double_team(Team& tm, const Jac<N>& P, const Mod<N>& M) {
+  Fe<N> l1[3], l2[2], l3[1], l4[1];
+  mul_level<N, 3>(tm, {P.X, P.Y, P.Y}, {P.X, P.Y, P.Z}, l1, M);
+  const Fe<N> A = l1[0], B = l1[1];
+  const Fe<N> xb = fe_add<N>(P.X, B, M);
+  mul_level<N, 2>(tm, {B, xb}, {B, xb}, l2, M);
+  const Fe<N> C = l2[0];
+  const Fe<N> D = fe_dbl<N>(fe_sub<N>(fe_sub<N>(l2[1], A, M), C, M), M);
+  const Fe<N> E = fe_add<N>(fe_dbl<N>(A, M), A, M);
+  mul_level<N, 1>(tm, {E}, {E}, l3, M);
+  Jac<N> R;
+  R.X = fe_sub<N>(l3[0], fe_dbl<N>(D, M), M);
+  mul_level<N, 1>(tm, {E}, {fe_sub<N>(D, R.X, M)}, l4, M);
+  R.Y = fe_sub<N>(l4[0], fe_dbl<N>(fe_dbl<N>(fe_dbl<N>(C, M), M), M), M);
+  R.Z = fe_dbl<N>(l1[2], M);
+  return R;
+}
+
+// One bit: D = ec_double(acc), S = ec_add(D, Q), returns bit ? S : D. Q2, Q3
+// are Q.Z^2 and Q.Z^3. The double's levels and the add's interleave (Z1 =
+// D.Z is known after level 1, X1 = D.X after 3, Y1 = D.Y after 4):
+//   1  X^2, Y^2, Y Z
+//   2  B^2, (X + B)^2, Z1^2, Y2 Z1
+//   3  E^2, (Z1 + Z2)^2, U2 = X2 Z1^2, S2 = Y2 Z1 Z1^2
+//   4  E (D - X3), U1 = X1 Z2^2
+//   5  S1 = Y1 Z2^3, I = (2H)^2
+//   6  R^2, J = H I, V = U1 I, Z3 = ((Z1 + Z2)^2 - Z1^2 - Z2^2) H
+//   7  R (V - X3), S1 J
+// The degenerate cases are ec_add's: Q at infinity gives D, D at infinity
+// gives Q, D == -Q infinity, and D == Q the doubling of D, computed only
+// when a lane takes it (the reference's pl.when); the team shares a lane,
+// so it takes each branch together.
+template <int N, class Team>
+CTT_HD Jac<N> ladder_step(Team& tm, const Jac<N>& acc, const Jac<N>& Q, const Fe<N>& Q2,
+                          const Fe<N>& Q3, bool bit, const Mod<N>& M) {
+  Fe<N> l1[3], l2[4], l3[4], l4[2], l5[2], l6[4], l7[2];
+  mul_level<N, 3>(tm, {acc.X, acc.Y, acc.Y}, {acc.X, acc.Y, acc.Z}, l1, M);
+  const Fe<N> A = l1[0], B = l1[1];
+  Jac<N> D;
+  D.Z = fe_dbl<N>(l1[2], M);
+  const Fe<N> xb = fe_add<N>(acc.X, B, M);
+  const Fe<N> zz = fe_add<N>(D.Z, Q.Z, M);
+  mul_level<N, 4>(tm, {B, xb, D.Z, Q.Y}, {B, xb, D.Z, D.Z}, l2, M);
+  const Fe<N> C = l2[0], Z1Z1 = l2[2];
+  const Fe<N> Dd = fe_dbl<N>(fe_sub<N>(fe_sub<N>(l2[1], A, M), C, M), M);
+  const Fe<N> E = fe_add<N>(fe_dbl<N>(A, M), A, M);
+  mul_level<N, 4>(tm, {E, zz, Q.X, l2[3]}, {E, zz, Z1Z1, Z1Z1}, l3, M);
+  D.X = fe_sub<N>(l3[0], fe_dbl<N>(Dd, M), M);
+  mul_level<N, 2>(tm, {E, D.X}, {fe_sub<N>(Dd, D.X, M), Q2}, l4, M);
+  D.Y = fe_sub<N>(l4[0], fe_dbl<N>(fe_dbl<N>(fe_dbl<N>(C, M), M), M), M);
+  const Fe<N> U1 = l4[1];
+  const Fe<N> H = fe_sub<N>(l3[2], U1, M);
+  const Fe<N> H2 = fe_dbl<N>(H, M);
+  mul_level<N, 2>(tm, {D.Y, H2}, {Q3, H2}, l5, M);
+  const Fe<N> S1 = l5[0], I = l5[1];
+  const Fe<N> R = fe_dbl<N>(fe_sub<N>(l3[3], S1, M), M);
+  const Fe<N> zh = fe_sub<N>(fe_sub<N>(l3[1], Z1Z1, M), Q2, M);
+  mul_level<N, 4>(tm, {R, H, U1, zh}, {R, I, I, H}, l6, M);
+  const Fe<N> J = l6[1], V = l6[2];
+  Jac<N> S;
+  S.X = fe_sub<N>(fe_sub<N>(l6[0], J, M), fe_dbl<N>(V, M), M);
+  S.Z = l6[3];
+  mul_level<N, 2>(tm, {R, S1}, {fe_sub<N>(V, S.X, M), J}, l7, M);
+  S.Y = fe_sub<N>(l7[0], fe_dbl<N>(l7[1], M), M);
+  const bool q_inf = fe_is_zero<N>(Q.Z), p_inf = fe_is_zero<N>(D.Z);
+  const bool h0 = fe_is_zero<N>(H), r0 = fe_is_zero<N>(R);
+  if (!q_inf && !p_inf && h0 && r0) S = ec_double_team<N>(tm, D, M);
+  S = jac_sel<N>(h0 && !r0, jac_infinity<N>(M), S);
+  S = jac_sel<N>(p_inf, Q, S);
+  S = jac_sel<N>(q_inf, D, S);
+  return jac_sel<N>(bit, S, D);
+}
+
+// [k]Q over nbits bits from the top: word w of the lane's canonical 32-bit
+// scalar limbs is k[w * stride]. Constant-time in k: every bit doubles,
+// adds and selects, and the loop count is the public nbits.
+template <int N, class Team>
+CTT_HD Jac<N> ec_scalar_mul(Team& tm, const uint32_t* k, size_t stride, int nbits,
+                            const Jac<N>& Q, const Mod<N>& M) {
+  const Fe<N> Q2 = fe_sq<N>(Q.Z, M);
+  const Fe<N> Q3 = fe_mul<N>(Q.Z, Q2, M);
+  Jac<N> acc = jac_infinity<N>(M);
+  for (int b = nbits - 1; b >= 0; --b) {
+    const bool bit = (k[(size_t)(b >> 5) * stride] >> (b & 31)) & 1u;
+    acc = ladder_step<N>(tm, acc, Q, Q2, Q3, bit, M);
+  }
+  return acc;
 }
 
 }  // namespace ctt

@@ -32,6 +32,12 @@ extern "C" void ctt_host_fp_mul(const uint32_t* mod_words, const uint32_t* a,
   for (int i = 0; i < n; ++i) put(out, i, fe_mul<NL>(row(a, i), row(b, i), md));
 }
 
+extern "C" void ctt_host_fp_mul_eo(const uint32_t* mod_words, const uint32_t* a,
+                                   const uint32_t* b, uint32_t* out, int n) {
+  const Mod<NL> md = mod_from_words<NL>(mod_words);
+  for (int i = 0; i < n; ++i) put(out, i, fe_mul_eo<NL>(row(a, i), row(b, i), md));
+}
+
 extern "C" void ctt_host_ec_add(const uint32_t* mod_words, const uint32_t* x1,
                                 const uint32_t* y1, const uint32_t* z1,
                                 const uint32_t* x2, const uint32_t* y2,
@@ -67,6 +73,23 @@ extern "C" void ctt_host_ec_double(const uint32_t* mod_words, const uint32_t* x,
   const Mod<NL> md = mod_from_words<NL>(mod_words);
   for (int i = 0; i < n; ++i) {
     const J R = ec_double<NL>(J{row(x, i), row(y, i), row(z, i)}, md);
+    put(x3, i, R.X);
+    put(y3, i, R.Y);
+    put(z3, i, R.Z);
+  }
+}
+
+// ec_scalar_mul's ladder as a team of one: k is row-major (n, ls) u32
+// canonical limbs, the points (n, 12) as above.
+extern "C" void ctt_host_ec_scalar_mul(const uint32_t* mod_words, const uint32_t* k, int ls,
+                                       const uint32_t* x, const uint32_t* y,
+                                       const uint32_t* z, uint32_t* x3, uint32_t* y3,
+                                       uint32_t* z3, int n, int nbits) {
+  const Mod<NL> md = mod_from_words<NL>(mod_words);
+  for (int i = 0; i < n; ++i) {
+    Solo<NL> tm;
+    const J R = ec_scalar_mul<NL>(tm, k + (size_t)i * ls, 1, nbits,
+                                  J{row(x, i), row(y, i), row(z, i)}, md);
     put(x3, i, R.X);
     put(y3, i, R.Y);
     put(z3, i, R.Z);

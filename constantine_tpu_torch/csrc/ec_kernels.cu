@@ -1,7 +1,9 @@
-// K3-K6: the G1 point kernels of the MSM, over BLS12-381 Fp (12 limbs).
+// K3-K7: the G1 point kernels, over BLS12-381 Fp (12 limbs).
 //
 // Replace constantine_tpu/ops/pallas_ec.py:
-//   K3  PallasEC._elemwise -> add, double, double_k  (ctt_ec_add, ctt_ec_double_k)
+//   K3  PallasEC._elemwise -> add, double, double_k  (ctt_ec_add, ctt_ec_double_k),
+//       and as ECGroup.scalar_mul drives them, a double, an add and a select
+//       per scalar bit (constantine_tpu/ops/ec.py:260-282): ctt_ec_scalar_mul
 //   K4  PallasEC.flush_scan   (ctt_flush_scan)
 //   K5  PallasEC.merge_scan   (ctt_merge_scan)
 //   K6  PallasEC.bucket_reduce (ctt_bucket_reduce)
@@ -24,6 +26,16 @@
 // lanes, K = 184 steps) keeps 4 of the 132 SMs busy with one warp per
 // scheduler, so it is latency-bound well above that; the lane geometry is
 // the reference's, kept so each stage stays bit-exact against it.
+//
+// ec_scalar_mul walks every bit of [k]Q in one launch (the per-bit route
+// took two launches and three selects a bit). FK20 calls it on 64-128
+// lanes, where one thread a lane is two warps on one SM: a chain of 23
+// dependent multiplies a bit, so its time is the chain's, far above the
+// issue bound. The design shortens the chain: Q's Z^2 and Z^3 once a lane
+// (21 products a bit), the bit's products in 7 levels of independent ones
+// (ec.cuh ladder_step) computed side by side by a team of SM_TEAM threads
+// a lane, and a Montgomery multiply over two independent carry chains
+// (ec.cuh fe_mul_eo) that only this kernel uses.
 #include <cuda_runtime.h>
 
 #include "ec.cuh"
@@ -173,6 +185,63 @@ __global__ void scaled_doubles_kernel(MD md, const uint32_t* x, const uint32_t* 
   store(oz, W, w, P.Z);
 }
 
+// ec_scalar_mul: [k]Q per lane, every bit in one launch (ec.cuh's
+// ec_scalar_mul). A team of SM_TEAM threads in one warp owns a lane; each
+// member holds the whole state, computes its share of a level's products
+// and hands it to the others through shared memory.
+constexpr int SM_TEAM = 4;       // threads a lane (PERF.md: chosen on the H100)
+constexpr int SM_THREADS = 64;
+constexpr int SM_LANES = SM_THREADS / SM_TEAM;
+constexpr int SM_WORDS = 2 * SM_TEAM * NL + 1;   // +1: teams start on different banks
+static_assert(32 % SM_TEAM == 0, "a team lies within one warp");
+
+// Two sets of T product slots alternate between rounds, so one __syncwarp
+// a round both publishes its products and keeps the next round's writes
+// behind every member's reads of the last.
+template <int kT>
+struct SmTeam {
+  static constexpr int T = kT;
+  uint32_t* slots;
+  unsigned mask;
+  int rank;
+  int par;
+  __device__ __forceinline__ void put(const F& p) {
+    uint32_t* s = slots + (par * T + rank) * NL;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) s[l] = p.v[l];
+    __syncwarp(mask);
+  }
+  __device__ __forceinline__ F get(int j) const {
+    const uint32_t* s = slots + (par * T + j) * NL;
+    F r;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) r.v[l] = s[l];
+    return r;
+  }
+  __device__ __forceinline__ void next() { par ^= 1; }
+};
+
+// k: (ls, n) canonical scalar limbs, lane axis contiguous.
+__global__ void __launch_bounds__(SM_THREADS)
+ec_scalar_mul_kernel(MD md, const uint32_t* __restrict__ k, const uint32_t* x,
+                     const uint32_t* y, const uint32_t* z, uint32_t* ox, uint32_t* oy,
+                     uint32_t* oz, int n, int nbits) {
+  const int team = threadIdx.x / SM_TEAM;
+  const int i = blockIdx.x * SM_LANES + team;
+  if (i >= n) return;  // a whole team: SM_TEAM divides the warp
+  const J Q{load(x, n, i), load(y, n, i), load(z, n, i)};
+  __shared__ uint32_t slots[SM_LANES * SM_WORDS];
+  const int rank = threadIdx.x % SM_TEAM;
+  const unsigned mask = ((1u << SM_TEAM) - 1) << ((threadIdx.x & 31) - rank);
+  SmTeam<SM_TEAM> tm{slots + team * SM_WORDS, mask, rank, 0};
+  const J R = ec_scalar_mul<NL>(tm, k + i, n, nbits, Q, md);
+  if (rank == 0) {
+    store(ox, n, i, R.X);
+    store(oy, n, i, R.Y);
+    store(oz, n, i, R.Z);
+  }
+}
+
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
@@ -240,5 +309,17 @@ extern "C" int ctt_scaled_doubles(const uint32_t* mod_words, const void* x, cons
     scaled_doubles_kernel<<<blocks(W), THREADS, 0, (cudaStream_t)stream>>>(
         mod_from_words<NL>(mod_words), (const uint32_t*)x, (const uint32_t*)y,
         (const uint32_t*)z, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, W, c);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ctt_ec_scalar_mul(const uint32_t* mod_words, const void* k, const void* x,
+                                 const void* y, const void* z, void* ox, void* oy, void* oz,
+                                 int n, int nbits, void* stream) {
+  if (n > 0)
+    ec_scalar_mul_kernel<<<(n + SM_LANES - 1) / SM_LANES, SM_THREADS, 0,
+                           (cudaStream_t)stream>>>(
+        mod_from_words<NL>(mod_words), (const uint32_t*)k, (const uint32_t*)x,
+        (const uint32_t*)y, (const uint32_t*)z, (uint32_t*)ox, (uint32_t*)oy,
+        (uint32_t*)oz, n, nbits);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""K3-K6: G1 point kernels -- wrappers and plain versions.
+"""K3-K7: G1 point kernels -- wrappers and plain versions.
 
 Counterpart of ``constantine_tpu/ops/pallas_ec.py`` (``PallasEC``). Public
 methods take the reference's planar layout: a coordinate is an int32 tensor
@@ -6,7 +6,10 @@ methods take the reference's planar layout: a coordinate is an int32 tensor
 tensors each method launches its kernel from ``csrc/ec_kernels.cu``; on CPU
 tensors it runs the plain version below, which repeats the kernel's
 formulas with torch ops (``ec_double``, ``ec_madd``, ``ec_add``: the
-reference's ``_KF`` group law, selects in the same order).
+reference's ``_KF`` group law, selects in the same order). ``scalar_mul``
+is K3 as ``ECGroup.scalar_mul`` drives it: the whole double-add-select
+ladder in one ``ec_scalar_mul`` launch, whose plain version is that ladder
+over the plain ``ec_double`` and ``ec_add``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import ctypes
 import torch
 
 from .. import build
+from . import limbs as lb
 from .cuda_field import _on_cuda, mont_mul_plain
 
 # ---------------------------------------------------------------------------
@@ -170,6 +174,43 @@ class CudaEC:
 
     def double(self, P):
         return self.double_k(P, 1)
+
+    # -- [k]P in one launch (K3 as scalar_mul drives it) ----------------------------
+
+    def scalar_mul(self, k, P, nbits: int):
+        """[k]P per lane by the constant-time ladder: nbits bits of k from the
+        top, each a double, an add of P and a select on the bit.
+
+        k: (Ls, n) int32 canonical (not Montgomery) 32-bit scalar limbs, lane
+        axis contiguous; P: (NL, n) x 3. Returns (NL, n) x 3, limb for limb the
+        per-bit loop of ec_double, ec_add and the select.
+        """
+        self._check_coords(P)
+        n = P[0].shape[1]
+        if (k.dtype != torch.int32 or not k.is_contiguous() or k.dim() != 2
+                or k.shape[1] != n or not 0 < nbits <= lb.LIMB_BITS * k.shape[0]):
+            raise ValueError(f"scalar_mul: {k.dtype} scalars {tuple(k.shape)} "
+                             f"(contiguous: {k.is_contiguous()}) with nbits={nbits} for {n} lanes")
+        if not _on_cuda(k, *P):
+            return self._scalar_mul_plain(k, P, nbits)
+        out = tuple(torch.empty_like(P[0]) for _ in range(3))
+        build.KERNELS["ec_scalar_mul"](P[0].device, self._mod,
+                                       *map(build.ptr, (k, *P, *out)), n, nbits)
+        return out
+
+    def _scalar_mul_plain(self, k, P, nbits):
+        F = self.F
+        kw = lb.widen(k)
+        idx = torch.arange(nbits - 1, -1, -1, device=k.device)
+        bits = ((kw[idx // lb.LIMB_BITS] >> (idx % lb.LIMB_BITS)[:, None]) & 1).bool()  # (nbits, n)
+        Q = tuple(map(_std, P))
+        one = F.broadcast_one((k.shape[1],), k.device)
+        acc = (one, one, torch.zeros_like(one))
+        for bit in bits:
+            acc = ec_double(F, self._mul_plain, acc)
+            added = ec_add(F, self._mul_plain, acc, Q)
+            acc = tuple(torch.where(bit[:, None], a2, a1) for a2, a1 in zip(added, acc))
+        return tuple(map(_planar, acc))
 
     # -- K4: flush scan ---------------------------------------------------------
 

@@ -6,9 +6,14 @@ infinity is any point with Z == 0, built as (1, 1, 0) in Montgomery form.
 ``double`` and ``add`` run the K3 kernels on CUDA tensors (through the
 planar layout of ``cuda_ec``) and their plain versions on CPU tensors;
 ``madd`` composes field ops (K1 on CUDA), as the reference's XLA group law
-did, and ``scalar_mul`` composes the K3 double and add per scalar bit, as
-the reference composes XLA ops. G2 (``G2Group``, over the Fp2 tower): plain
-torch on either device, as the reference's XLA G2.
+did. ``scalar_mul`` is the reference's scan of double, add and select over
+the scalar bits; on CUDA tensors it is one ``ec_scalar_mul`` launch
+(``csrc/ec_kernels.cu``), which walks every bit with the accumulator on
+chip. At FK20's EC-FFT widths (64-128 lanes) that kernel is bound by its
+chain of dependent multiplies, not by issue, so a team of threads shares
+each lane and computes each level of a bit's independent products side by
+side. G2 (``G2Group``, over the Fp2 tower): plain torch on either device,
+as the reference's XLA G2.
 """
 
 from __future__ import annotations
@@ -107,23 +112,18 @@ class ECGroup:
 
         scalar_limbs: (..., NL_r) canonical 32-bit limbs (not Montgomery),
         broadcast against P's batch shape; scalar_bits bounds the scalars
-        (default all their limbs' bits). Every bit is one K3 double and one
-        K3 add over all lanes, in the kernels' planar layout throughout.
+        (default all their limbs' bits). On CUDA tensors the whole ladder is
+        one ec_scalar_mul launch (the scalars expanded to every lane); on CPU
+        tensors it is the per-bit loop of the plain double, add and select,
+        which the kernel matches limb for limb.
         """
         batch = torch.broadcast_shapes(P[0].shape[:-1], scalar_limbs.shape[:-1])
         P = tuple(v.expand(batch + v.shape[-1:]) for v in P)
-        k = lb.widen(scalar_limbs.expand(batch + scalar_limbs.shape[-1:])
-                     .reshape(-1, scalar_limbs.shape[-1]))
-        nbits = scalar_bits or lb.LIMB_BITS * k.shape[1]
-        idx = torch.arange(nbits - 1, -1, -1, device=k.device)
-        bits = ((k[:, idx // lb.LIMB_BITS] >> (idx % lb.LIMB_BITS)) & 1).bool().T   # (nbits, n)
+        ls = scalar_limbs.shape[-1]
+        k = scalar_limbs.expand(batch + (ls,)).reshape(-1, ls).T.contiguous()
         Pp, _ = _to_planar(P)
-        acc, _ = _to_planar(self.infinity(batch, P[0].device))
-        for bit in bits:
-            acc = self.pec.double(acc)
-            added = self.pec.add(acc, Pp)
-            acc = tuple(torch.where(bit, a2, a1) for a2, a1 in zip(added, acc))
-        return _from_planar(acc, batch)
+        nbits = scalar_bits or lb.LIMB_BITS * ls
+        return _from_planar(self.pec.scalar_mul(k, Pp, nbits), batch)
 
 
 class G2Group:

@@ -3,8 +3,11 @@
 Counterpart of ``constantine_tpu/ops/ec_fft.py`` (``ECFFTDomain``): the
 radix-2 DIT of ``ops/ntt.py`` with G1 Jacobian points for elements, so a
 twiddle product is a scalar multiplication by a root of unity. Every stage
-is one batched ``ECGroup.scalar_mul`` (K3 double and add per bit on the
-card) and one point add/sub pair.
+is one batched ``ECGroup.scalar_mul`` (one ``ec_scalar_mul`` launch on the
+card over the stage's n/2 x batch lanes, the twiddles expanded to every
+lane) and one point add/sub pair (K3 add); the inverse adds one more
+``scalar_mul`` by 1/n. FK20's transforms have 64-128 lanes, where the
+kernel is bound by its chain of dependent multiplies, not by issue.
 
 Unlike the reference, a transform takes trailing batch axes: points of
 shape (n, ..., NL) are transformed along axis 0, so FK20's 64 EC-FFTs run
