@@ -8,8 +8,9 @@
    with an infinity lane and a Y = 0 lane; K8-K10 and Field.batch_inv over
    Fp and Fr; K13 on G1 points with both signs, a non-square x, an on-curve
    point outside G1 and x = 0 lanes; K11 on the generators, a pair with
-   P = -P' and a batch of one; K12 on f = 1 and on Miller outputs; K3'
-   ntt_bfly and ntt_twm with 0, 1, r - 1 lanes and w = 1).
+   P = -P', a pair with P and Q both negated, and a batch of one; K12 on
+   f = 1 and on Miller outputs; K3' ntt_bfly and ntt_twm with 0, 1, r - 1
+   lanes and w = 1).
 2. Twelve paths, each driven with every launch count set to 0 just before
    it and read just after; each must have launched every kernel it runs:
    a. fixed-base commit: loads the EIP-4844 trusted setup, builds the KZG
@@ -71,13 +72,17 @@
    degenerate lanes (P == Q, P == -Q, infinity, padding keys): exact
    equality. Times both, and computes each kernel's
    bound from the bytes it must move and the multiplies it must do on these
-   inputs. Times the pairing at B = 256 (bench.py's bls12381_pairing_batch256).
+   inputs. Prints the pairing kernels' programs (rounds, rounds with a
+   product, the inverse's lone multiplies) and their chain floor, from
+   fe_mul_eo's latency in a lone thread measured here. Times the pairing at
+   B = 256 (bench.py's bls12381_pairing_batch256).
 4. Prints the kernels' JSON line, then the result line.
 
 Any failed check exits non-zero before the result line; so does a machine
 without a CUDA card, or a directory without the port beside this script.
 """
 
+import ctypes
 import hashlib
 import json
 import statistics
@@ -183,21 +188,19 @@ def k13_muls(p: int, u: int) -> int:
             + 7 * (u2.bit_length() - 1) + 11 * (bin(u2).count("1") - 1) + 5)
 
 
-def pairing_muls(p: int, x_abs: int):
-    """Multiplies of one K11 and one K12 lane (csrc/pairing.cuh), counted
-    from the code: an Fp2 product is 3, a square 2, an Fp6 product 18, an
-    Fp12 product 54, a cyclotomic square 18, a sparse line product 45."""
-    dbl_iter = 36 + 36 + 4 + 45          # Fp12 square, doubling step, line
-    add_iter = 37 + 4 + 45               # addition step, line
-    nb, pc = x_abs.bit_length() - 1, bin(x_abs).count("1") - 1
-    miller = nb * dbl_iter + pc * add_iter
-    e = p - 2
-    fermat = (e.bit_length() - 1) + (bin(e).count("1") - 1)
-    inverse = 2 * 12 + 15 + 9 + (4 + fermat) + 9 + 2 * 18      # through Fp6 and Fp2
-    easy = 54 + 15 + 54 + inverse
-    pow_x = nb * 18 + pc * 54
-    hard = 5 * pow_x + 2 * 54 + (15 + 54) + (15 + 54) + 54 + (18 + 54) + 54
-    return miller, easy + hard
+PROGRAM_STATS = ("T", "rounds", "product rounds", "inverse multiplies", "products", "sums",
+                 "slots")
+
+
+def program_stats(lib, symbol, consts):
+    """What the program of a pairing kernel (csrc/pairing.cuh) is made of, as
+    the kernel's library builds it: its team size, rounds, rounds with a
+    product, the inverse's lone multiplies, product and sum tasks, slots."""
+    out = (ctypes.c_int * len(PROGRAM_STATS))()
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+    fn(ctypes.c_void_p(consts.ctypes.data), out)
+    return dict(zip(PROGRAM_STATS, out))
 
 
 class CheckFailed(Exception):
@@ -321,6 +324,7 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "scripts"))
     try:
         from constantine_tpu_torch import build
         from constantine_tpu_torch.models import eip4844, peerdas
@@ -339,6 +343,7 @@ def main():
         from constantine_tpu_torch.ops.cuda_g1 import get_cuda_g1
         from constantine_tpu_torch.ops.pairing import get_pairing
         from constantine_tpu_torch.utils import refmath as rm
+        from torch_scalar_mul_teams import mul_latency, start_mul_chain
         from constantine_tpu_torch.utils.serialization import (g1_compress_affine,
                                                                g1_decompress_host,
                                                                parse_g1_host,
@@ -361,7 +366,14 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
+    # the lone-thread multiply chain that gives the pairing kernels' chain
+    # floor, built beside the port
+    chain_dir = build.BUILD_DIR / "mul_chain"
+    chain_dir.mkdir(parents=True, exist_ok=True)
+    chain_src, chain_nvcc = start_mul_chain(chain_dir)
     build.build_all(verbose=True)
+    chain_log, _ = chain_nvcc.communicate()
+    check(chain_nvcc.returncode == 0, f"the multiply chain kernel does not build:\n{chain_log}")
     print(f"kernel build: {time.perf_counter() - t0:.3f} s (nvcc, one process per source)",
           flush=True)
 
@@ -486,14 +498,15 @@ def main():
     got13 = k13(g1d, xm13, sg13)
     same(got13, k13(g1d, xm13, sg13, plain=True), "g1_decompress quick")
     check(got13[1].tolist()[:6] == [1, 1, 1, 1, 0, 0], "g1_decompress quick: ok bits")
-    # K11 on (G1, G2) and (-G1, G2), and a batch of one; K12 on f = 1 and on
-    # the two Miller outputs, whose GT values multiply to one
+    # K11 on (G1, G2), (-G1, G2) and (-G1, -G2), and a batch of one; K12 on
+    # f = 1 and on the three Miller outputs: the first two GT values multiply
+    # to one, the third equals the first
     pr = get_pairing()
     eng, p12 = pr.engine, pr.fp12
     gx, gy = (t.to(dev) for t in ctx.g1_gen)
     g2x, g2y = (t.to(dev) for t in ctx.g2_gen)
-    P11 = (torch.cat([gx, gx]), torch.cat([gy, F.neg(gy)]))
-    Q11 = (torch.cat([g2x, g2x]), torch.cat([g2y, g2y]))
+    P11 = (torch.cat([gx, gx, gx]), torch.cat([gy, F.neg(gy), F.neg(gy)]))
+    Q11 = (torch.cat([g2x, g2x, g2x]), torch.cat([g2y, g2y, F.neg(g2y[0])[None]]))
     f11 = eng.miller_loop(P11, Q11)
     same((f11,), (eng._miller_loop_plain(*P11, *Q11),), "miller_loop quick")
     P1 = tuple(t[:1] for t in P11)
@@ -503,7 +516,8 @@ def main():
     same((eng.final_exp(one12),), (one12,), "final_exp of one")
     gt11 = eng.final_exp(f11)
     same((gt11,), (eng._final_exp_plain(f11),), "final_exp quick")
-    check(bool(p12.eq(p12.mul(gt11[:1], gt11[1:]), one12).all()), "e(P, Q) e(-P, Q) != 1")
+    check(bool(p12.eq(p12.mul(gt11[:1], gt11[1:2]), one12).all()), "e(P, Q) e(-P, Q) != 1")
+    check(torch.equal(gt11[2], gt11[0]), "e(-P, -Q) != e(P, Q)")
     # K3' on (2, 16, 3) with 0, 1 and r - 1 lanes, every stage (w = 1 at k = 0)
     fr = ctx.fr
     xq = rand_fe(96, fr).reshape(2, 16, 3, fr.NL)
@@ -1093,7 +1107,14 @@ def main():
     # K11 at the single verify's 2 pairs and at 256 random pairs (bench.py's
     # bls12381_pairing_batch256: [k]G1 and [k']G2, k, k' < 2^60 from seed 5);
     # K12 at the verify's one product lane and at the 256 Miller outputs
-    mil_lane, fexp_lane = pairing_muls(ctx.p, eng.x_abs)
+    # each lane's multiplies for the bound: the programs' products, and K12's
+    # inverse (one member's chain)
+    progs = {"miller_loop": program_stats(build.library("miller_loop"), "ctt_miller_loop_stats",
+                                          eng._consts),
+             "final_exp": program_stats(build.library("final_exp"), "ctt_final_exp_stats",
+                                        eng._consts)}
+    mil_lane = progs["miller_loop"]["products"]
+    fexp_lane = progs["final_exp"]["products"] + progs["final_exp"]["inverse multiplies"]
     v = get_verifier(kzg)
     cpar, ppar = parse_g1_host(C1), parse_g1_host(P1)
     (xv, yv), _ = v.decompress(np.concatenate([cpar[0], ppar[0]]),
@@ -1128,6 +1149,19 @@ def main():
                keep=keep)
     check(bool(p12.eq(eng.final_exp(f1), p12.one((1,), dev)).all()),
           "the verify's pairing product is not one")
+    # the chain floor: (rounds with a product + the inverse's lone
+    # multiplies) x one fe_mul_eo's latency in a lone thread's chain
+    lat_us, exact, _ = mul_latency(ctypes.CDLL(str(chain_src.with_suffix(".so"))), ctx, dev,
+                                   True)
+    check(exact, "the fe_mul_eo chain differs from the plain product")
+    print(f"fe_mul_eo: {lat_us:.4f} us a multiply in a lone thread's dependent chain "
+          "(CUDA events)", flush=True)
+    for name, st in progs.items():
+        floor_ms = (st["product rounds"] + st["inverse multiplies"]) * lat_us * 1e-3
+        print(f"{name} program: " + ", ".join(f"{k} {v}" for k, v in st.items())
+              + f"; chain floor {floor_ms:.4f} ms; kernel {report[name]['ms']:.4f} ms at the "
+              f"verify's B = {1 if name == 'final_exp' else 2}, "
+              f"{report[name]['ms'] / floor_ms:.2f}x the floor", flush=True)
     # K3' at every stage of the paths' transforms, each stage's input the
     # transform's own: the blob's 4096 iNTT and its 8192 extension NTT (the
     # four-step's column and row stages), the FK20 NTT over (64, 128) and the

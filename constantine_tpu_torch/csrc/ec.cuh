@@ -264,7 +264,8 @@ CTT_HD Fe<N> fe_sq(const Fe<N>& a, const Mod<N>& M) {
 
 // -- fe_mul_eo: the same product over two carry chains ---------------------
 //
-// Only the scalar-multiplication ladder below calls it. fe_mul's CIOS row is
+// The scalar-multiplication ladder below and the pairing programs' products
+// (program.cuh) call it; every other kernel uses fe_mul. fe_mul's CIOS row is
 // one chain of 4N dependent carry instructions. Here the row's products
 // a[j] * b[i] are split by the parity of j (sppark's mont_t layout): the
 // even j fill words (j, j+1) of an accumulator `ev` without overlapping,
@@ -554,8 +555,9 @@ CTT_HD Jac<N> jac_sel(bool c, const Jac<N>& a, const Jac<N>& b) {
 // products side by side while every member repeats the cheap linear
 // operations: at T = 4 the chain is 7 multiplies a bit.
 //
-// A team type has T, rank, put(p) (this member's product of the round,
-// then wait for the team), get(j) (product j < T of the round) and next().
+// A team type has T, rank, sync() (wait for the team), put(p) (this
+// member's product of the round, then sync), get(j) (product j < T of the
+// round) and next().
 
 // The team of one: ec_host.cpp's g++ build of the ladder.
 template <int N>
@@ -563,10 +565,49 @@ struct Solo {
   static constexpr int T = 1;
   int rank = 0;
   Fe<N> last;
+  CTT_HD void sync() const {}
   CTT_HD void put(const Fe<N>& p) { last = p; }
   CTT_HD Fe<N> get(int) const { return last; }
   CTT_HD void next() {}
 };
+
+#if defined(__CUDACC__)
+// The card's team: kT threads of one block. A team within a warp (kT
+// divides 32) syncs with __syncwarp over its mask; a team of whole warps
+// with the named barrier `bar` (1 + its index in the block). Two sets of T
+// product slots in shared memory alternate between rounds, so one sync a
+// round both publishes mul_level's products and keeps the next round's
+// writes behind every member's reads of the last.
+template <int N, int kT>
+struct SmTeam {
+  static constexpr int T = kT;
+  uint32_t* slots;
+  unsigned mask;
+  int rank;
+  int par = 0;
+  int bar = 1;
+  __device__ __forceinline__ void sync() const {
+    if constexpr (kT <= 32)
+      __syncwarp(mask);
+    else
+      asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(kT) : "memory");
+  }
+  __device__ __forceinline__ void put(const Fe<N>& p) {
+    uint32_t* s = slots + (par * T + rank) * N;
+#pragma unroll
+    for (int l = 0; l < N; ++l) s[l] = p.v[l];
+    sync();
+  }
+  __device__ __forceinline__ Fe<N> get(int j) const {
+    const uint32_t* s = slots + (par * T + j) * N;
+    Fe<N> r;
+#pragma unroll
+    for (int l = 0; l < N; ++l) r.v[l] = s[l];
+    return r;
+  }
+  __device__ __forceinline__ void next() { par ^= 1; }
+};
+#endif
 
 // out[i] = a[i] * b[i] for the K independent products of one level: member
 // r computes products r, r + T, ... (a member without one repeats the

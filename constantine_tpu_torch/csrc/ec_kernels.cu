@@ -195,32 +195,6 @@ constexpr int SM_LANES = SM_THREADS / SM_TEAM;
 constexpr int SM_WORDS = 2 * SM_TEAM * NL + 1;   // +1: teams start on different banks
 static_assert(32 % SM_TEAM == 0, "a team lies within one warp");
 
-// Two sets of T product slots alternate between rounds, so one __syncwarp
-// a round both publishes its products and keeps the next round's writes
-// behind every member's reads of the last.
-template <int kT>
-struct SmTeam {
-  static constexpr int T = kT;
-  uint32_t* slots;
-  unsigned mask;
-  int rank;
-  int par;
-  __device__ __forceinline__ void put(const F& p) {
-    uint32_t* s = slots + (par * T + rank) * NL;
-#pragma unroll
-    for (int l = 0; l < NL; ++l) s[l] = p.v[l];
-    __syncwarp(mask);
-  }
-  __device__ __forceinline__ F get(int j) const {
-    const uint32_t* s = slots + (par * T + j) * NL;
-    F r;
-#pragma unroll
-    for (int l = 0; l < NL; ++l) r.v[l] = s[l];
-    return r;
-  }
-  __device__ __forceinline__ void next() { par ^= 1; }
-};
-
 // k: (ls, n) canonical scalar limbs, lane axis contiguous.
 __global__ void __launch_bounds__(SM_THREADS)
 ec_scalar_mul_kernel(MD md, const uint32_t* __restrict__ k, const uint32_t* x,
@@ -233,7 +207,7 @@ ec_scalar_mul_kernel(MD md, const uint32_t* __restrict__ k, const uint32_t* x,
   __shared__ uint32_t slots[SM_LANES * SM_WORDS];
   const int rank = threadIdx.x % SM_TEAM;
   const unsigned mask = ((1u << SM_TEAM) - 1) << ((threadIdx.x & 31) - rank);
-  SmTeam<SM_TEAM> tm{slots + team * SM_WORDS, mask, rank, 0};
+  SmTeam<NL, SM_TEAM> tm{slots + team * SM_WORDS, mask, rank};
   const J R = ec_scalar_mul<NL>(tm, k + i, n, nbits, Q, md);
   if (rank == 0) {
     store(ox, n, i, R.X);

@@ -1,14 +1,19 @@
-// Host build of tower.cuh, pairing.cuh and g1.cuh for the tests: the lane
-// functions of K11, K12 and K13 and the Fp12 products behind a plain C
-// interface, so they can be held against the port's plain PyTorch versions
-// on a machine without nvcc or a card.
+// Host build of program.cuh, tower.cuh, pairing.cuh and g1.cuh for the
+// tests: the programs of K11 and K12 (and of single Fp12 operations) run by
+// one thread that plays every member of the team in turn, and K13's lane,
+// behind a plain C interface, so they can be held against the port's plain
+// PyTorch versions on a machine without nvcc or a card.
 //
-//   g++ -O1 -std=c++17 -shared -fPIC -o libpairing_host.so pairing_host.cpp
+//   g++ -O2 -std=c++17 -shared -fPIC -o libpairing_host.so pairing_host.cpp
 //
 // Arrays are row-major u32 limbs in Montgomery form: Fp (n, 12), Fp2
 // (n, 2, 12), Fp12 (n, 12, 12). consts is the kernels' constants struct as
-// ops/cuda_pairing.py and ops/cuda_g1.py pack it.
+// ops/cuda_pairing.py and ops/cuda_g1.py pack it. T is the team size the
+// program is scheduled for (the kernels' is a constant of miller_loop.cu and
+// final_exp.cu); reverse plays the members of each round from the last to
+// the first, which changes the result if two tasks of a round touch one slot.
 #include <cstddef>
+#include <vector>
 
 #include "g1.cuh"
 #include "pairing.cuh"
@@ -17,6 +22,64 @@ using namespace ctt;
 
 namespace {
 constexpr int W12 = 12 * FPN;
+
+// One Fp12 operation on inputs a (12 Fp) and b (12 Fp, the sparse line's
+// lA, lC, lB in its first three Fp2 coefficients): 0 mul, 1 square,
+// 2 cyclotomic square, 3 conj, 4 Frobenius p, 5 Frobenius p^2, 6 inverse,
+// 7 sparse line product.
+Program fp12_op_program(const PairingConsts& C, int op, int T) {
+  PairingBuild pb(C);
+  SymTower& t = pb.t;
+  const S12 a = pb.input12(NCONST), y = pb.input12(NCONST + 12);
+  S12 r;
+  switch (op) {
+    case 0: r = t.f12mul(a, y); break;
+    case 1: r = t.f12sq(a); break;
+    case 2: r = t.f12cyc_sq(a); break;
+    case 3: r = t.f12conj(a); break;
+    case 4: r = t.f12frob(a, pb.gamma1, true); break;
+    case 5: r = t.f12frob(a, pb.gamma2, false); break;
+    case 6: r = t.f12inv(a); break;
+    default: r = t.f12sparse_line(a, y.c0.c0, y.c0.c1, y.c0.c2); break;
+  }
+  return compile(pb.b, PairingBuild::outputs(r), T, NCONST + 24, C.pm2);
+}
+
+// One lane: load the constants and inputs (input k at in(k)), run the
+// rounds, store the 12 outputs.
+template <class In>
+void run_lane(const Program& P, const PairingConsts& C, int n_in, In in, bool reverse,
+              uint32_t* out) {
+  std::vector<uint32_t> s((size_t)P.slots * FPN, 0);
+  for (int k = 0; k < NCONST + n_in; ++k)
+    slot_store(s.data(), k, k < NCONST ? const_slot(C, k) : fp_load(in(k - NCONST)));
+  const double inv_p = p_top_inv(C.md);
+  for (int r = 0; r < P.rounds; ++r)
+    for (int i = 0; i < P.T; ++i) {
+      const int m = reverse ? P.T - 1 - i : i;
+      exec_task(P.tasks[(size_t)r * P.T + m], s.data(), C.md, C.pm2, inv_p);
+    }
+  for (int k = 0; k < 12; ++k) fp_store(out + k * FPN, slot_load(s.data(), P.out[k]));
+}
+
+void miller(const PairingConsts& C, int T, bool reverse, const uint32_t* xp, const uint32_t* yp,
+            const uint32_t* xq, const uint32_t* yq, uint32_t* out, int n) {
+  const Program P = miller_program(C, T);
+  for (int i = 0; i < n; ++i) {
+    const uint32_t* in[MILLER_INPUTS] = {xp + (size_t)i * FPN, yp + (size_t)i * FPN,
+                                         xq + (size_t)i * 2 * FPN, xq + (size_t)i * 2 * FPN + FPN,
+                                         yq + (size_t)i * 2 * FPN, yq + (size_t)i * 2 * FPN + FPN};
+    run_lane(P, C, MILLER_INPUTS, [&](int k) { return in[k]; }, reverse, out + (size_t)i * W12);
+  }
+}
+
+void final_exp(const PairingConsts& C, int T, bool reverse, const uint32_t* f, uint32_t* out,
+               int n) {
+  const Program P = final_exp_program(C, T);
+  for (int i = 0; i < n; ++i)
+    run_lane(P, C, FINAL_EXP_INPUTS, [&](int k) { return f + (size_t)i * W12 + k * FPN; },
+             reverse, out + (size_t)i * W12);
+}
 }  // namespace
 
 extern "C" int ctt_host_pairing_consts_size() { return (int)sizeof(PairingConsts); }
@@ -24,46 +87,46 @@ extern "C" int ctt_host_g1_consts_size() { return (int)sizeof(G1DecompressConsts
 
 // op: 0 mul, 1 square, 2 cyclotomic square, 3 conj, 4 Frobenius p,
 // 5 Frobenius p^2, 6 inverse, 7 sparse line (b holds lA, lC, lB in its
-// first three Fp2 coefficients)
+// first three Fp2 coefficients); a team of one
 extern "C" void ctt_host_fp12_op(const void* consts, int op, const uint32_t* a,
                                  const uint32_t* b, uint32_t* out, int n) {
   const PairingConsts& C = *(const PairingConsts*)consts;
-  const MdP& M = C.md;
-  for (int i = 0; i < n; ++i) {
-    const Fp12 x = f12load(a + (size_t)i * W12);
-    const Fp12 y = f12load(b + (size_t)i * W12);
-    Fp12 r;
-    switch (op) {
-      case 0: r = f12mul(x, y, M); break;
-      case 1: r = f12sq(x, M); break;
-      case 2: r = f12cyc_sq(x, M); break;
-      case 3: r = f12conj(x, M); break;
-      case 4: r = f12frob(x, C.gamma1, true, M); break;
-      case 5: r = f12frob(x, C.gamma2, false, M); break;
-      case 6: r = f12inv(x, C.pm2, M); break;
-      default: r = f12sparse_line(x, y.c0.c0, y.c0.c1, y.c0.c2, M); break;
-    }
-    f12store(out + (size_t)i * W12, r);
-  }
+  const Program P = fp12_op_program(C, op, 1);
+  for (int i = 0; i < n; ++i)
+    run_lane(P, C, 24, [&](int k) {
+      return k < 12 ? a + (size_t)i * W12 + k * FPN : b + (size_t)i * W12 + (k - 12) * FPN;
+    }, false, out + (size_t)i * W12);
 }
 
+// K11's and K12's programs for a team of one.
 extern "C" void ctt_host_miller_loop(const void* consts, const uint32_t* xp,
                                      const uint32_t* yp, const uint32_t* xq,
                                      const uint32_t* yq, uint32_t* out, int n) {
-  const PairingConsts& C = *(const PairingConsts*)consts;
-  for (int i = 0; i < n; ++i) {
-    const Fp2 xQ{fp_load(xq + (size_t)i * 2 * FPN), fp_load(xq + (size_t)i * 2 * FPN + FPN)};
-    const Fp2 yQ{fp_load(yq + (size_t)i * 2 * FPN), fp_load(yq + (size_t)i * 2 * FPN + FPN)};
-    f12store(out + (size_t)i * W12, miller_loop_lane(fp_load(xp + (size_t)i * FPN),
-                                                     fp_load(yp + (size_t)i * FPN), xQ, yQ, C));
-  }
+  miller(*(const PairingConsts*)consts, 1, false, xp, yp, xq, yq, out, n);
 }
 
 extern "C" void ctt_host_final_exp(const void* consts, const uint32_t* f, uint32_t* out,
                                    int n) {
+  final_exp(*(const PairingConsts*)consts, 1, false, f, out, n);
+}
+
+// The same for a team of T, members played in order or reversed.
+extern "C" void ctt_host_miller_loop_team(const void* consts, int T, int reverse,
+                                          const uint32_t* xp, const uint32_t* yp,
+                                          const uint32_t* xq, const uint32_t* yq, uint32_t* out,
+                                          int n) {
+  miller(*(const PairingConsts*)consts, T, reverse != 0, xp, yp, xq, yq, out, n);
+}
+
+extern "C" void ctt_host_final_exp_team(const void* consts, int T, int reverse,
+                                        const uint32_t* f, uint32_t* out, int n) {
+  final_exp(*(const PairingConsts*)consts, T, reverse != 0, f, out, n);
+}
+
+// which: 0 K11, 1 K12; out: 7 ints as pairing.cuh's program_stats.
+extern "C" void ctt_host_program_stats(const void* consts, int which, int T, int* out) {
   const PairingConsts& C = *(const PairingConsts*)consts;
-  for (int i = 0; i < n; ++i)
-    f12store(out + (size_t)i * W12, final_exp_lane(f12load(f + (size_t)i * W12), C));
+  program_stats(which == 0 ? miller_program(C, T) : final_exp_program(C, T), out);
 }
 
 extern "C" void ctt_host_g1_decompress(const void* consts, const uint32_t* xm,

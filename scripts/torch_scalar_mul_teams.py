@@ -91,10 +91,7 @@ def build_variants(out_dir: Path):
     """Start every nvcc at once; returns {name: CDLL} of the builds that passed."""
     shutil.rmtree(out_dir, ignore_errors=True)
     jobs = {}
-    chain_cu = out_dir / "mul_chain.cu"
     out_dir.mkdir(parents=True)
-    chain_cu.write_text(MUL_CHAIN_CU)
-    jobs["mul_chain"] = (chain_cu, ["-I", str(build.CSRC)])
     for t in TEAMS:
         for m in MULS:
             d = out_dir / f"t{t}_{m}"
@@ -106,12 +103,14 @@ def build_variants(out_dir: Path):
                 head = d / "ec.cuh"
                 head.write_text(patched(head.read_text(), MUL_LINE,
                                         "tm.put(fe_mul<N>(x, y, M));"))
-            jobs[t, m] = (kern, [])
+            jobs[t, m] = kern
     nvcc = build.nvcc_path()
     procs = {name: (src.with_suffix(".so"), subprocess.Popen(
-        [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", *extra, "-o", str(src.with_suffix(".so")),
+        [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(src.with_suffix(".so")),
          str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name, (src, extra) in jobs.items()}
+        for name, src in jobs.items()}
+    src, proc = start_mul_chain(out_dir)
+    procs["mul_chain"] = (src.with_suffix(".so"), proc)
     libs = {}
     for name, (so, proc) in procs.items():
         log, _ = proc.communicate()
@@ -123,6 +122,40 @@ def build_variants(out_dir: Path):
                 print(f"[nvcc {name}] {line}", flush=True)
         libs[name] = ctypes.CDLL(str(so))
     return libs
+
+
+def start_mul_chain(out_dir: Path):
+    """Write the chain kernel into out_dir and start its nvcc: (source, Popen)."""
+    src = out_dir / "mul_chain.cu"
+    src.write_text(MUL_CHAIN_CU)
+    return src, subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(build.CSRC), "-o",
+         str(src.with_suffix(".so")), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def mul_latency(lib, ctx, dev, eo):
+    """One multiply's latency in us in a lone thread's dependent chain (the
+    chain kernel of lib), and whether a chain of 3 equals the plain product;
+    also the two chains' ms (CUDA events)."""
+    F = ctx.fp
+    chain = fn(lib, "ctt_mul_chain", [P_, P_, P_, I_, I_])
+    xy = F.encode([rm.ec_mul(5, ctx.g, 0, ctx.p)[0], rm.ec_mul(7, ctx.g, 0, ctx.p)[1]])
+    want = xy[0:1]
+    for _ in range(3):
+        want = mont_mul_plain(want, xy[1:2], F)
+    a = xy.to(dev).contiguous()
+    out = torch.empty(F.NL, dtype=torch.int32, device=dev)
+    mod = ctypes.c_void_p(F.mod_words.ctypes.data)
+
+    def run(reps):
+        if chain(mod, build.ptr(a), build.ptr(out), reps, int(eo),
+                 torch.cuda.current_stream(dev).cuda_stream) != 0:
+            raise RuntimeError("ctt_mul_chain: CUDA error")
+    run(3)
+    exact = torch.equal(out.cpu(), want[0])
+    t = [events_ms(lambda n=n: run(n), 5) for n in CHAIN]
+    return (t[1] - t[0]) * 1e3 / (CHAIN[1] - CHAIN[0]), exact, t
 
 
 def fn(lib, name, argtypes):
@@ -169,22 +202,11 @@ def main():
 
     # 1. one multiply's latency in a lone thread's dependent chain
     if "mul_chain" in libs:
-        chain = fn(libs["mul_chain"], "ctt_mul_chain", [P_, P_, P_, I_, I_])
-        xy = F.encode([rm.ec_mul(5, ctx.g, 0, ctx.p)[0], rm.ec_mul(7, ctx.g, 0, ctx.p)[1]])
-        want = xy[0:1]
-        for _ in range(3):
-            want = mont_mul_plain(want, xy[1:2], F)
-        a = xy.to(dev).contiguous()
-        out = torch.empty(F.NL, dtype=torch.int32, device=dev)
         lat = {}
         for eo, m in enumerate(MULS):
-            def run(reps, eo=eo):
-                if chain(mod, ptr(a), ptr(out), reps, eo, stream()) != 0:
-                    raise RuntimeError("ctt_mul_chain: CUDA error")
-            run(3)
-            same((out.cpu(),), (want[0],), f"{m} chain of 3 = plain")
-            t = [events_ms(lambda n=n: run(n), 5) for n in CHAIN]
-            lat[m] = (t[1] - t[0]) * 1e3 / (CHAIN[1] - CHAIN[0])
+            lat[m], exact, t = mul_latency(libs["mul_chain"], ctx, dev, eo)
+            print(f"check {m} chain of 3 = plain: {'exact' if exact else 'DIFFERS'}", flush=True)
+            ok &= exact
             print(f"{m}: {lat[m]:.4f} us a multiply in a lone thread's dependent chain "
                   f"({CHAIN[0]}: {t[0]:.4f} ms, {CHAIN[1]}: {t[1]:.4f} ms, CUDA events)",
                   flush=True)
