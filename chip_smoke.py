@@ -61,21 +61,27 @@
       path j's launches per call.
    Every kernel must have launched over the paths.
 3. Holds every kernel against its plain version on the card at the paths'
-   shapes (K4-K6 on both the fixed-base and the online commit's streams;
+   shapes (K4-K6 on both the fixed-base and the online commit's streams,
+   K4 with a one-run lane, a padding lane and a run of [P, -P, Q, Q, ...];
    K13 at 2 and 128 lanes, K11 at 2 and 256 pairs, K12 at 1 and 256
    lanes, K3' at every stage of the 4096 iNTT and 8192 NTT (four-step),
    the (64, 128) FK20 NTT and the (128, 64) cell iNTT; ec_scalar_mul at 64
    lanes x 255 bits with k = 0, 1, r - 1, r, r + 2 and a point at infinity,
    at 1/n's 128 lanes, a bank stage's 4,096 and the Hadamard product's
    8,192, and against the per-bit K3 composition at an EC-FFT stage's 64
-   lanes and the Hadamard product's 8,192), with hand-built
-   degenerate lanes (P == Q, P == -Q, infinity, padding keys): exact
-   equality. Times both, and computes each kernel's
-   bound from the bytes it must move and the multiplies it must do on these
-   inputs. Prints the pairing kernels' programs (rounds, rounds with a
-   product, the inverse's lone multiplies) and their chain floor, from
-   fe_mul_eo's latency in a lone thread measured here. Times the pairing at
-   B = 256 (bench.py's bls12381_pairing_batch256).
+   lanes and the Hadamard product's 8,192; K3 add at the tail's 512 lanes
+   and FK20's 64 and 128), with hand-built degenerate lanes (P == Q,
+   P == -Q, infinity, padding keys): exact equality. Times both, and
+   computes each kernel's bound from the bytes it must move and the
+   multiplies it must do on these inputs. Holds K4 also at the batch of 16
+   (K = 1,472, M = 1,024; 16 dense blobs, and 16 zero blobs, whose lanes
+   are one run each) and at the 2^16 MSM (K = 1,408), once each (the plain
+   version takes ~25 s there), and times it; K3 add's device time
+   (torch.profiler) beside its call time. Prints the pairing
+   kernels' programs (rounds, rounds with a product, the inverse's lone
+   multiplies) and their chain floor, from fe_mul_eo's latency in a lone
+   thread measured here. Times the pairing at B = 256 (bench.py's
+   bls12381_pairing_batch256).
 4. Prints the kernels' JSON line, then the result line.
 
 Any failed check exits non-zero before the result line; so does a machine
@@ -267,15 +273,17 @@ def host_ms(torch, fn, reps):
     return out
 
 
-def profile_call(torch, names, label, fn):
-    """Device time by kernel over one call (torch.profiler), and the share
-    of the call's wall time the device spent idle."""
+def device_by_kernel(torch, names, fn, reps=1):
+    """Device time of `reps` calls of fn by kernel (torch.profiler): a span
+    is kernel k's when its name holds k + "_kernel", else "torch ops".
+    Returns ({name: (launches, us)}, wall us of the calls)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -285,6 +293,13 @@ def profile_call(torch, names, label, fn):
             span = e.time_range.end - e.time_range.start
             n, t = by_name.get(name, (0, 0.0))
             by_name[name] = (n + 1, t + span)
+    return by_name, wall_us
+
+
+def profile_call(torch, names, label, fn):
+    """Device time by kernel over one call, and the share of the call's wall
+    time the device spent idle."""
+    by_name, wall_us = device_by_kernel(torch, names, fn)
     busy_us = sum(t for _, t in by_name.values())
     if busy_us == 0:
         print(f"profile of one {label}: the profiler recorded no device time "
@@ -294,6 +309,35 @@ def profile_call(torch, names, label, fn):
                       sorted(by_name.items(), key=lambda kv: -kv[1][1]))
     print(f"profile of one {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}; {parts}", flush=True)
+
+
+def device_ms(torch, fn, kernel, reps):
+    """Device milliseconds of `kernel`'s launches per call of fn over `reps`
+    calls, or None when the profiler saw no device time for it."""
+    by_name, _ = device_by_kernel(torch, [kernel], fn, reps)
+    return by_name[kernel][1] / reps / 1e3 if kernel in by_name else None
+
+
+def enqueue_ms(torch, fn, reps):
+    """Host milliseconds a call of fn takes to return, over `reps` calls
+    issued back to back (the device catches up after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return host
+
+
+def longest_run(keys):
+    """Steps of the longest run of equal keys down a lane of (K, M) keys."""
+    import numpy as np
+    kn = keys.cpu().numpy().T
+    start = np.ones_like(kn, dtype=bool)
+    start[:, 1:] = kn[:, 1:] != kn[:, :-1]
+    return int(np.bincount(np.cumsum(start.reshape(-1))).max())
 
 
 def bound(nbytes, nmuls, mul_ops=MUL_OPS):
@@ -950,14 +994,16 @@ def main():
         compacted flush, bucket_reduce over its bucket planes. Returns the
         bucket planes and T."""
         K, M, nb = fs.K, fs.M, fs.nb
-        # K4, lanes 0-1 rebuilt: one run of [P, -P, Q, Q, ...] (infinity,
-        # then a fresh point, then a doubling) and a padding lane
+        # K4, lanes 0-2 rebuilt: one run of [P, -P, Q, Q, ...] (infinity,
+        # then a fresh point, then a doubling), a padding lane, and one run
+        # over all K of the lane's own entries
         keys, st = fs.skT.clone(), fs.st.clone()
         keys[:, 0] = keys[0, 0]
         st[1, :NL, 0], st[1, NL:, 0] = st[0, :NL, 0], F.neg(st[0, NL:, 0][None])[0]
         st[3, :, 0] = st[2, :, 0]
         keys[:, 1] = nb + 1
         st[:, :, 1] = st[0, :, 2][None]
+        keys[:, 2] = keys[0, 2]
         run_same = (keys[1:] == keys[:-1]).sum().item()
         record("flush_scan", pec.flush_scan(keys, st), pec._flush_scan_plain(keys, st),
                lambda: pec.flush_scan(keys, st), lambda: pec._flush_scan_plain(keys, st),
@@ -1024,6 +1070,46 @@ def main():
     scan_checks(fso, n_o, c_o, W_o, f"online commit c={c_o} W={W_o}", False)
     C = bx.shape[2]
 
+    # K4 at the batch of 16 (K = 1,472, M = 1,024) over 16 dense blobs and
+    # over 16 zero blobs (every lane one run of the gap key: the worst case),
+    # and at the 2^16 MSM (K = 1,408): held once against the plain version
+    # (~25 s a call at these K), then timed beside its bound.
+    def batch_stream(blob_list):
+        """blob_to_kzg_commitment_batch's flush stream (PrecomputedMSM.batch)."""
+        pm = kzg._pm
+        polys = lb.to_tensor(np.stack([eip4844.blob_to_polynomial(b)[0] for b in blob_list]),
+                             dev)
+        B, N, NLr = polys.shape
+        rows = _signed_digits(polys.reshape(B * N, NLr), pm.c, pm.W)
+        rows = rows.reshape(pm.W, B, N).transpose(0, 1).reshape(B, pm.W * N)
+        return msm_gpu._flush_stream(F, pm._tables, rows, pm.c)
+
+    glv_p, glv_s, glv_b = _apply_glv(g, _glv_for_group(g.name), bases, k16)
+    c16 = msm_gpu.best_window_tpu(glv_p[0].shape[0], glv_b)
+    W16 = msm_gpu._cdiv(glv_b + 1, c16)
+    k4_streams = {
+        "batch 16 dense": batch_stream(seeded + [dense_blob(s_, r) for s_ in range(113, 117)]),
+        "msm 2^16": msm_gpu._flush_stream(F, glv_p, _signed_digits(glv_s, c16, W16), c16),
+        "batch 16 zero blobs": batch_stream([blobs["zero"]] * 16),
+    }
+    for label, st4 in k4_streams.items():
+        K4, M4, keys4, xy4 = st4.K, st4.M, st4.skT, st4.st
+        got4 = pec.flush_scan(keys4, xy4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want4 = pec._flush_scan_plain(keys4, xy4)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        same(got4, want4, f"flush_scan {label} K={K4} M={M4}")
+        del got4, want4
+        ms4 = cuda_ms(torch, lambda: pec.flush_scan(keys4, xy4), 5)
+        madds = (keys4[1:] == keys4[:-1]).sum().item()
+        bms4, by4 = bound(K4 * M4 * (4 + 5 * FE_BYTES), MULS["madd"] * madds)
+        print(f"check flush_scan {label} K={K4} M={M4}: exact (plain {plain_s:.1f} s); "
+              f"kernel {ms4:.4f} ms a call (CUDA events), bound {bms4:.6f} ms ({by4}); "
+              f"{madds} madds, longest run {longest_run(keys4)} steps", flush=True)
+    del k4_streams
+
     # K3 add at the tail's width (C = 512 chunk lanes), with P == Q, P == -Q,
     # infinity on either side, and P == Q under another Z
     run, _ = pec.bucket_reduce(bx, by, bz, T)
@@ -1049,6 +1135,15 @@ def main():
     inf_lanes = g.is_inf(std(pec.add(Pp, Qp)))
     check(bool(inf_lanes[1]) and bool(inf_lanes[4]) and not bool(inf_lanes[5]),
           "ec_add degenerate lanes")
+
+    def add_times(label, Pn, Qn, call_ms):
+        dms = device_ms(torch, lambda: pec.add(Pn, Qn), "ec_add", 50)
+        hms = enqueue_ms(torch, lambda: pec.add(Pn, Qn), 200)
+        print(f"ec_add {label}: call {call_ms:.4f} ms (CUDA events over back-to-back calls), "
+              f"device {'not measured' if dms is None else f'{dms:.4f} ms'} a launch "
+              f"(torch.profiler), host {hms:.4f} ms to return a call", flush=True)
+
+    add_times(f"{C} lanes (the tail)", Pp, Qp, report["ec_add"]["ms"])
 
     # K7 at the online commit's (NL, 15), c = 9 and the 2^16 MSM's (NL, 11),
     # c = 12; inputs: Jacobian table points (Z != 1)
@@ -1251,6 +1346,25 @@ def main():
     k64 = lb.to_tensor(lb.ints_to_limbs(ks64, fr.NL), dev).T.contiguous()
     P64 = tuple(v[:, :64].clone() for v in bankp)
     P64[2][:, 5] = 0
+
+    # K3 add at FK20's widths (64 and 128 lanes) on bank points: lane 0 P + P,
+    # lane 1 P + (-P), lane 2 inf + Q, lane 3 P + inf
+    for n in (64, 128):
+        Pf = tuple(v[:, :n].T.contiguous() for v in bankp)
+        Qf = tuple(v[:, n:2 * n].T.contiguous() for v in bankp)
+        for v, w in zip(Qf, Pf):
+            v[:2] = w[:2]
+        Qf[1][1] = F.neg(Pf[1][1][None])[0]
+        Pf[2][2] = 0
+        Qf[2][3] = 0
+        Pfp, Qfp = planar(Pf), planar(Qf)
+        got_f = pec.add(Pfp, Qfp)
+        same(got_f, planar(ec_add(F, mul_plain, Pf, Qf)), f"ec_add FK20 n={n}")
+        check(g.is_inf(std(got_f))[:4].tolist() == [False, True, False, False],
+              f"ec_add FK20 n={n}: degenerate lanes")
+        add_times(f"{n} lanes (FK20)", Pfp, Qfp, cuda_ms(torch, lambda: pec.add(Pfp, Qfp), 50))
+    print("check ec_add against the plain version at FK20's 64 and 128 lanes: exact",
+          flush=True)
 
     def ladder_work(n):
         """Bytes (points and scalars in, points out) and multiplies of n lanes,

@@ -5,9 +5,10 @@
 // a = 0 Jacobian group law ec_double (dbl-2009-l), ec_madd (madd-2007-bl)
 // and ec_add (add-2007-bl), with the same formulas and the same degenerate-
 // case selects as the reference, so every output is limb-identical. Below
-// them, the scalar-multiplication ladder of ec_scalar_mul: the same group
-// law in levels of independent products for a team of threads, over its
-// own two-chain multiply fe_mul_eo.
+// them, the same group law in levels of independent products for a team of
+// threads over the two-chain multiply fe_mul_eo: the scalar-multiplication
+// ladder of ec_scalar_mul, the team add of ec_add, and the team madd and
+// lane walk of flush_scan.
 //
 // Layout: an element is N little-endian 32-bit limbs in Montgomery form with
 // R = 2^(32N) -- the reference's R, since its 16-bit digits pair into these
@@ -264,10 +265,11 @@ CTT_HD Fe<N> fe_sq(const Fe<N>& a, const Mod<N>& M) {
 
 // -- fe_mul_eo: the same product over two carry chains ---------------------
 //
-// The scalar-multiplication ladder below and the pairing programs' products
-// (program.cuh) call it; every other kernel uses fe_mul. fe_mul's CIOS row is
-// one chain of 4N dependent carry instructions. Here the row's products
-// a[j] * b[i] are split by the parity of j (sppark's mont_t layout): the
+// The team group law below (the ladder, K3 add, K4) and the pairing
+// programs' products (program.cuh) call it; every other kernel uses
+// fe_mul. fe_mul's CIOS row is one chain of 4N dependent carry
+// instructions. Here the row's products a[j] * b[i] are split by the
+// parity of j (sppark's mont_t layout): the
 // even j fill words (j, j+1) of an accumulator `ev` without overlapping,
 // the odd j words (j-1, j) of `od`, which stands one word higher, so each
 // half is a chain of N instructions independent of the other; the same
@@ -559,7 +561,7 @@ CTT_HD Jac<N> jac_sel(bool c, const Jac<N>& a, const Jac<N>& b) {
 // member's product of the round, then sync), get(j) (product j < T of the
 // round) and next().
 
-// The team of one: ec_host.cpp's g++ build of the ladder.
+// The team of one: ec_host.cpp's g++ build of the team code.
 template <int N>
 struct Solo {
   static constexpr int T = 1;
@@ -721,6 +723,139 @@ CTT_HD Jac<N> ec_scalar_mul(Team& tm, const uint32_t* k, size_t stride, int nbit
     acc = ladder_step<N>(tm, acc, Q, Q2, Q3, bit, M);
   }
   return acc;
+}
+
+// -- ec_add and ec_madd for a team --------------------------------------------
+//
+// One thread runs ec_add's 16 multiplies and ec_madd's 11 one after the
+// other. Their products fall into 5 levels of independent ones; the order
+// of independent products does not change a limb (every value is
+// canonical), so these return ec_add's and ec_madd's limbs. The degenerate
+// cases are theirs: the doubling (H = R = 0 with both operands finite) is
+// computed only when the lane takes it, and the team, which shares the
+// lane, takes it together; then the selects in the reference's order.
+
+// ec_add in 5 levels (16 products; at T = 4 a level is one round):
+//   1  Z1^2, Z2^2, Y1 Z2, Y2 Z1
+//   2  U1 = X1 Z2^2, U2 = X2 Z1^2, S1 = Y1 Z2 Z2^2, S2 = Y2 Z1 Z1^2
+//   3  I = (2H)^2, R^2, (Z1 + Z2)^2
+//   4  J = H I, V = U1 I, Z3 = ((Z1 + Z2)^2 - Z1^2 - Z2^2) H
+//   5  R (V - X3), S1 J
+template <int N, class Team>
+CTT_HD Jac<N> ec_add_team(Team& tm, const Jac<N>& P, const Jac<N>& Q, const Mod<N>& M) {
+  Fe<N> l1[4], l2[4], l3[3], l4[3], l5[2];
+  mul_level<N, 4>(tm, {P.Z, Q.Z, P.Y, Q.Y}, {P.Z, Q.Z, Q.Z, P.Z}, l1, M);
+  const Fe<N> Z1Z1 = l1[0], Z2Z2 = l1[1];
+  mul_level<N, 4>(tm, {P.X, Q.X, l1[2], l1[3]}, {Z2Z2, Z1Z1, Z2Z2, Z1Z1}, l2, M);
+  const Fe<N> U1 = l2[0], S1 = l2[2];
+  const Fe<N> H = fe_sub<N>(l2[1], U1, M);
+  const Fe<N> R = fe_dbl<N>(fe_sub<N>(l2[3], S1, M), M);
+  const Fe<N> H2 = fe_dbl<N>(H, M), zz = fe_add<N>(P.Z, Q.Z, M);
+  mul_level<N, 3>(tm, {H2, R, zz}, {H2, R, zz}, l3, M);
+  const Fe<N> zh = fe_sub<N>(fe_sub<N>(l3[2], Z1Z1, M), Z2Z2, M);
+  mul_level<N, 3>(tm, {H, U1, zh}, {l3[0], l3[0], H}, l4, M);
+  const Fe<N> J = l4[0], V = l4[1];
+  Jac<N> O;
+  O.X = fe_sub<N>(fe_sub<N>(l3[1], J, M), fe_dbl<N>(V, M), M);
+  mul_level<N, 2>(tm, {R, S1}, {fe_sub<N>(V, O.X, M), J}, l5, M);
+  O.Y = fe_sub<N>(l5[0], fe_dbl<N>(l5[1], M), M);
+  O.Z = l4[2];
+  const bool p_inf = fe_is_zero<N>(P.Z), q_inf = fe_is_zero<N>(Q.Z);
+  const bool h0 = fe_is_zero<N>(H), r0 = fe_is_zero<N>(R);
+  if (!p_inf && !q_inf && h0 && r0) O = ec_double_team<N>(tm, P, M);
+  O = jac_sel<N>(h0 && !r0, jac_infinity<N>(M), O);
+  O = jac_sel<N>(p_inf, Q, O);
+  return jac_sel<N>(q_inf, P, O);
+}
+
+// ec_madd in 5 levels (11 products; at T = 4 a level is one round, at T = 2
+// level 3 takes two):
+//   1  Z1^2, Y2 Z1
+//   2  U2 = X2 Z1^2, S2 = Y2 Z1 Z1^2
+//   3  H^2, R^2, (Z1 + H)^2
+//   4  J = H I, V = X1 I
+//   5  R (V - X3), Y1 J
+template <int N, class Team>
+CTT_HD Jac<N> ec_madd_team(Team& tm, const Jac<N>& P, const Fe<N>& X2, const Fe<N>& Y2,
+                           const Mod<N>& M) {
+  Fe<N> l1[2], l2[2], l3[3], l4[2], l5[2];
+  mul_level<N, 2>(tm, {P.Z, Y2}, {P.Z, P.Z}, l1, M);
+  const Fe<N> Z1Z1 = l1[0];
+  mul_level<N, 2>(tm, {X2, l1[1]}, {Z1Z1, Z1Z1}, l2, M);
+  const Fe<N> H = fe_sub<N>(l2[0], P.X, M);
+  const Fe<N> R = fe_dbl<N>(fe_sub<N>(l2[1], P.Y, M), M);
+  const Fe<N> zh = fe_add<N>(P.Z, H, M);
+  mul_level<N, 3>(tm, {H, R, zh}, {H, R, zh}, l3, M);
+  const Fe<N> HH = l3[0];
+  const Fe<N> I = fe_dbl<N>(fe_dbl<N>(HH, M), M);
+  mul_level<N, 2>(tm, {H, P.X}, {I, I}, l4, M);
+  const Fe<N> J = l4[0], V = l4[1];
+  Jac<N> O;
+  O.X = fe_sub<N>(fe_sub<N>(l3[1], J, M), fe_dbl<N>(V, M), M);
+  mul_level<N, 2>(tm, {R, P.Y}, {fe_sub<N>(V, O.X, M), J}, l5, M);
+  O.Y = fe_sub<N>(l5[0], fe_dbl<N>(l5[1], M), M);
+  O.Z = fe_sub<N>(fe_sub<N>(l3[2], Z1Z1, M), HH, M);
+  const bool p_inf = fe_is_zero<N>(P.Z);
+  const bool h0 = fe_is_zero<N>(H), r0 = fe_is_zero<N>(R);
+  if (!p_inf && h0 && r0) O = ec_double_team<N>(tm, P, M);
+  O = jac_sel<N>(h0 && !r0, jac_infinity<N>(M), O);
+  return jac_sel<N>(p_inf, Jac<N>{X2, Y2, fe_one<N>(M)}, O);
+}
+
+// Word l of a planar column: base[l * stride].
+template <int N>
+CTT_HD Fe<N> load_col(const uint32_t* base, size_t stride) {
+  Fe<N> r;
+#pragma unroll
+  for (int l = 0; l < N; ++l) r.v[l] = base[l * stride];
+  return r;
+}
+
+// Stores P's 3N words at base[l * stride] of ox, oy, oz, word w (X's limbs,
+// then Y's, then Z's) by member w mod T.
+template <int N, class Team>
+CTT_HD void store_split(const Team& tm, uint32_t* ox, uint32_t* oy, uint32_t* oz,
+                        size_t stride, const Jac<N>& P) {
+#pragma unroll
+  for (int l = 0; l < N; ++l) {
+    if (l % Team::T == tm.rank) ox[l * stride] = P.X.v[l];
+    if ((N + l) % Team::T == tm.rank) oy[l * stride] = P.Y.v[l];
+    if ((2 * N + l) % Team::T == tm.rank) oz[l * stride] = P.Z.v[l];
+  }
+}
+
+// -- flush_scan's lane ---------------------------------------------------------
+//
+// The stream is planar: keys (K, nl), entries xy (K, 2N, nl) (x limbs, then
+// y limbs), outputs (K, N, nl) each. Lane m sweeps keys[0..K, m], and slot
+// (k, m) holds its accumulator after entry k: madd(acc, entry) while the
+// key stays, a restart at (x, y, 1) when it changes (the reference's
+// kf.sel(same, g, X2/Y2/one)). The team walks the lane's K >= 1 steps. A
+// restart feeds the madd infinity, whose select gives (x, y, 1), so the
+// team's warp stays converged; the next entry is loaded a step ahead, since
+// it does not depend on the accumulator.
+template <int N, class Team>
+CTT_HD void flush_lane(Team& tm, const int32_t* keys, const uint32_t* xy, uint32_t* ex,
+                       uint32_t* ey, uint32_t* ez, int K, int nl, int m, const Mod<N>& M) {
+  const size_t snl = (size_t)nl;
+  Jac<N> acc = jac_infinity<N>(M);
+  int key = keys[m];
+  Fe<N> X2 = load_col<N>(xy + m, snl), Y2 = load_col<N>(xy + N * snl + m, snl);
+  bool restart = true;
+  for (int k = 0;; ++k) {
+    const int kn = k + 1 < K ? k + 1 : k;
+    const int nkey = keys[kn * snl + m];
+    const uint32_t* en = xy + kn * 2 * N * snl + m;
+    const Fe<N> nX = load_col<N>(en, snl), nY = load_col<N>(en + N * snl, snl);
+    acc = ec_madd_team<N>(tm, jac_sel<N>(restart, jac_infinity<N>(M), acc), X2, Y2, M);
+    const size_t o = k * N * snl + m;
+    store_split<N>(tm, ex + o, ey + o, ez + o, snl, acc);
+    restart = nkey != key;
+    if (k + 1 >= K) break;
+    key = nkey;
+    X2 = nX;
+    Y2 = nY;
+  }
 }
 
 }  // namespace ctt

@@ -5,7 +5,8 @@
 //   g++ -O2 -std=c++17 -shared -fPIC -o libec_host.so ec_host.cpp
 //
 // Arrays are row-major (n, 12) u32 limbs in Montgomery form; mod_words is
-// p[12], m0, one[12] as in ec.cuh.
+// p[12], m0, one[12] as in ec.cuh. The flush scan's entries take the
+// kernel's planar stream instead: keys (K, M), xy (K, 24, M), out (K, 12, M).
 #include "ec.cuh"
 
 using namespace ctt;
@@ -93,5 +94,101 @@ extern "C" void ctt_host_ec_scalar_mul(const uint32_t* mod_words, const uint32_t
     put(x3, i, R.X);
     put(y3, i, R.Y);
     put(z3, i, R.Z);
+  }
+}
+
+// ec_add_team and ec_madd_team (K3 add's and K4's levels) as a team of one.
+extern "C" void ctt_host_ec_add_team(const uint32_t* mod_words, const uint32_t* x1,
+                                     const uint32_t* y1, const uint32_t* z1,
+                                     const uint32_t* x2, const uint32_t* y2,
+                                     const uint32_t* z2, uint32_t* x3, uint32_t* y3,
+                                     uint32_t* z3, int n) {
+  const Mod<NL> md = mod_from_words<NL>(mod_words);
+  for (int i = 0; i < n; ++i) {
+    Solo<NL> tm;
+    const J R = ec_add_team<NL>(tm, J{row(x1, i), row(y1, i), row(z1, i)},
+                                J{row(x2, i), row(y2, i), row(z2, i)}, md);
+    put(x3, i, R.X);
+    put(y3, i, R.Y);
+    put(z3, i, R.Z);
+  }
+}
+
+extern "C" void ctt_host_ec_madd_team(const uint32_t* mod_words, const uint32_t* x1,
+                                      const uint32_t* y1, const uint32_t* z1,
+                                      const uint32_t* x2, const uint32_t* y2,
+                                      uint32_t* x3, uint32_t* y3, uint32_t* z3, int n) {
+  const Mod<NL> md = mod_from_words<NL>(mod_words);
+  for (int i = 0; i < n; ++i) {
+    Solo<NL> tm;
+    const J R = ec_madd_team<NL>(tm, J{row(x1, i), row(y1, i), row(z1, i)}, row(x2, i),
+                                 row(y2, i), md);
+    put(x3, i, R.X);
+    put(y3, i, R.Y);
+    put(z3, i, R.Z);
+  }
+}
+
+// K4's lane walk (ec.cuh flush_lane) over every lane, a team of one after
+// the other: in the kernel's lane order, or reversed.
+extern "C" void ctt_host_flush_scan_runs(const uint32_t* mod_words, const int32_t* keys,
+                                         const uint32_t* xy, uint32_t* ex, uint32_t* ey,
+                                         uint32_t* ez, int K, int M, int reverse) {
+  const Mod<NL> md = mod_from_words<NL>(mod_words);
+  for (int t = 0; t < M; ++t) {
+    Solo<NL> tm;
+    flush_lane<NL>(tm, keys, xy, ex, ey, ez, K, M, reverse ? M - 1 - t : t, md);
+  }
+}
+
+// The lanes' sequential scan over the one-thread ec_madd: lane m's
+// accumulator after each entry, restarting at (x, y, 1) on a change of key.
+extern "C" void ctt_host_flush_scan_seq(const uint32_t* mod_words, const int32_t* keys,
+                                        const uint32_t* xy, uint32_t* ex, uint32_t* ey,
+                                        uint32_t* ez, int K, int M) {
+  const Mod<NL> md = mod_from_words<NL>(mod_words);
+  const size_t nl = (size_t)M;
+  for (int m = 0; m < M; ++m) {
+    J acc = jac_infinity<NL>(md);
+    for (int k = 0; k < K; ++k) {
+      const uint32_t* e = xy + k * 2 * NL * nl + m;
+      const F X2 = load_col<NL>(e, nl), Y2 = load_col<NL>(e + NL * nl, nl);
+      const bool same = k > 0 && keys[k * nl + m] == keys[(k - 1) * nl + m];
+      acc = same ? ec_madd<NL>(acc, X2, Y2, md) : J{X2, Y2, fe_one<NL>(md)};
+      Solo<NL> tm;
+      const size_t o = k * NL * nl + m;
+      store_split<NL>(tm, ex + o, ey + o, ez + o, nl, acc);
+    }
+  }
+}
+
+// A member of a team of kT threads, as store_split sees it.
+template <int kT>
+struct Member {
+  static constexpr int T = kT;
+  int rank;
+};
+
+template <int kT>
+void store_members(const J& P, uint32_t* out) {
+  for (int r = 0; r < kT; ++r) {
+    uint32_t* o = out + r * 3 * NL;
+    store_split<NL>(Member<kT>{r}, o, o + NL, o + 2 * NL, 1, P);
+  }
+}
+
+// store_split's stores of the point (x, y, z) by each member r of a team of
+// T (1, 2, 3, 4 or 8) into out + r * 3 * NL (X's words, then Y's, then Z's).
+// Returns -1 for another T.
+extern "C" int ctt_host_store_split(const uint32_t* x, const uint32_t* y, const uint32_t* z,
+                                    uint32_t* out, int T) {
+  const J P{row(x, 0), row(y, 0), row(z, 0)};
+  switch (T) {
+    case 1: store_members<1>(P, out); return 0;
+    case 2: store_members<2>(P, out); return 0;
+    case 3: store_members<3>(P, out); return 0;
+    case 4: store_members<4>(P, out); return 0;
+    case 8: store_members<8>(P, out); return 0;
+    default: return -1;
   }
 }

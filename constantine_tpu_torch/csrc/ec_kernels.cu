@@ -11,21 +11,43 @@
 // All inline the field and point code of ec.cuh (K2, the reference's _KF).
 //
 // Layout is the reference's planar one: a coordinate array is (L, n) with
-// the lane axis contiguous, a stream is (K, L, M). Thread m owns lane m, so
-// a warp reading limb l of entry k reads 128 contiguous bytes.
+// the lane axis contiguous, a stream is (K, L, M). Where thread m owns lane
+// m, a warp reading limb l of entry k reads 128 contiguous bytes.
 //
 // Translation of the sequential grid: the TPU kernels walk K (or T) on the
 // grid's minor axis and carry the accumulator in VMEM scratch between grid
-// steps. GPU blocks run in no order, so here each thread keeps its
-// accumulator in registers and loops over K itself; the scans' K steps are
-// one long dependency chain per lane.
+// steps. GPU blocks run in no order, so here a thread (or a team of
+// threads) keeps its accumulator in registers and loops over K itself.
 //
 // Bound on an H100: integer multiply issue -- a madd is 11 Montgomery
 // multiplies (~3,300 products) and an add 16 (~4,800) against 72-144 bytes
-// of input per step. With one thread per lane the commit's flush (M = 512
-// lanes, K = 184 steps) keeps 4 of the 132 SMs busy with one warp per
-// scheduler, so it is latency-bound well above that; the lane geometry is
-// the reference's, kept so each stage stays bit-exact against it.
+// of input per step (chip_smoke.py `bound` counts the multiplies these
+// inputs need). One thread a lane runs them as one dependent chain, far
+// above that bound on the widths the paths use; three kernels shorten the
+// chain with a team of threads a lane (ec.cuh: a level's independent
+// products side by side, over the two-chain multiply fe_mul_eo).
+//
+// K4 flush_scan replaces pallas_ec.py:616-764. The reference sweeps each of
+// M = 512-1,024 lanes through K = 120-1,472 steps; one thread a lane kept 4-8
+// of the 132 SMs busy with one warp per scheduler, a chain of 11 multiplies
+// a step. Here a team of SM_TEAM threads walks a lane (ec.cuh flush_lane),
+// each step a madd in 5 levels (ec_madd_team), the next entry loaded a step
+// ahead, the step's 36 output words split among the members. The scan
+// restarts at every change of key, so a lane is a chain per run of equal
+// keys; but in the paths' streams the longest run is a whole lane (the top
+// windows' zero digits take the gap key, and their few nonzero buckets hold
+// hundreds of entries each), so splitting lanes into chunks of runs did not
+// pay (PERF.md, scripts/torch_flush_scan_teams.py). K steps of one team
+// (~6.6 us each on the H100, 5 multiply latencies and the linear work
+// between them) set the time, far above the multiplies' operations bound
+// (chip_smoke.py `bound`). The walk is the same whatever the keys: a
+// restart is a select.
+//
+// K3 add (ctt_ec_add) replaces PallasEC._elemwise's add (pallas_ec.py:
+// 525-560): a team of SM_TEAM threads a lane runs ec_add_team, 16 products
+// in 5 rounds, so a launch takes 5 multiply latencies instead of 16. At the
+// paths' widths it stays latency-bound (0.009-0.015 ms a launch on the
+// H100), and a call's time is the wrapper's host cost (0.03-0.06 ms).
 //
 // ec_scalar_mul walks every bit of [k]Q in one launch (the per-bit route
 // took two launches and three selects a bit). FK20 calls it on 64-128
@@ -35,7 +57,7 @@
 // (21 products a bit), the bit's products in 7 levels of independent ones
 // (ec.cuh ladder_step) computed side by side by a team of SM_TEAM threads
 // a lane, and a Montgomery multiply over two independent carry chains
-// (ec.cuh fe_mul_eo) that only this kernel uses.
+// (ec.cuh fe_mul_eo).
 #include <cuda_runtime.h>
 
 #include "ec.cuh"
@@ -63,20 +85,6 @@ __device__ __forceinline__ void store(uint32_t* __restrict__ base, int stride, i
   for (int l = 0; l < NL; ++l) base[(size_t)l * stride + idx] = v.v[l];
 }
 
-__global__ void ec_add_kernel(MD md, const uint32_t* x1, const uint32_t* y1,
-                              const uint32_t* z1, const uint32_t* x2,
-                              const uint32_t* y2, const uint32_t* z2, uint32_t* x3,
-                              uint32_t* y3, uint32_t* z3, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const J P{load(x1, n, i), load(y1, n, i), load(z1, n, i)};
-  const J Q{load(x2, n, i), load(y2, n, i), load(z2, n, i)};
-  const J R = ec_add<NL>(P, Q, md);
-  store(x3, n, i, R.X);
-  store(y3, n, i, R.Y);
-  store(z3, n, i, R.Z);
-}
-
 __global__ void ec_double_k_kernel(MD md, const uint32_t* x, const uint32_t* y,
                                    const uint32_t* z, uint32_t* ox, uint32_t* oy,
                                    uint32_t* oz, int n, int k) {
@@ -87,35 +95,6 @@ __global__ void ec_double_k_kernel(MD md, const uint32_t* x, const uint32_t* y,
   store(ox, n, i, P.X);
   store(oy, n, i, P.Y);
   store(oz, n, i, P.Z);
-}
-
-// keys (K, M); xy (K, 2*NL, M): rows 0..NL-1 are x, NL..2NL-1 the y limbs
-// (the reference's packed stream). Slot (k, m) of the outputs holds lane
-// m's accumulator after absorbing entry k.
-__global__ void flush_scan_kernel(MD md, const int* __restrict__ keys,
-                                  const uint32_t* __restrict__ xy, uint32_t* ex,
-                                  uint32_t* ey, uint32_t* ez, int K, int M) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const F one = fe_one<NL>(md);
-  J acc = jac_infinity<NL>(md);
-  int cur = -1;
-  for (int k = 0; k < K; ++k) {
-    const int kk = keys[(size_t)k * M + m];
-    const uint32_t* row = xy + (size_t)k * 2 * NL * M;
-    const F X2 = load(row, M, m);
-    const F Y2 = load(row + (size_t)NL * M, M, m);
-    if (kk == cur) {
-      acc = ec_madd<NL>(acc, X2, Y2, md);
-    } else {
-      acc = J{X2, Y2, one};
-    }
-    cur = kk;
-    const size_t off = (size_t)k * NL * M;
-    store(ex + off, M, m, acc.X);
-    store(ey + off, M, m, acc.Y);
-    store(ez + off, M, m, acc.Z);
-  }
 }
 
 // Same scan over Jacobian partial sums; entries with key <= 0 are neutral.
@@ -216,6 +195,46 @@ ec_scalar_mul_kernel(MD md, const uint32_t* __restrict__ k, const uint32_t* x,
   }
 }
 
+// K3 add: a team of SM_TEAM threads a lane over ec_add_team, launched like
+// ec_scalar_mul (16 lanes a block of 64 threads).
+__global__ void __launch_bounds__(SM_THREADS)
+ec_add_kernel(MD md, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
+              const uint32_t* x2, const uint32_t* y2, const uint32_t* z2, uint32_t* x3,
+              uint32_t* y3, uint32_t* z3, int n) {
+  const int team = threadIdx.x / SM_TEAM;
+  const int i = blockIdx.x * SM_LANES + team;
+  if (i >= n) return;  // a whole team
+  const J P{load(x1, n, i), load(y1, n, i), load(z1, n, i)};
+  const J Q{load(x2, n, i), load(y2, n, i), load(z2, n, i)};
+  __shared__ uint32_t slots[SM_LANES * SM_WORDS];
+  const int rank = threadIdx.x % SM_TEAM;
+  const unsigned mask = ((1u << SM_TEAM) - 1) << ((threadIdx.x & 31) - rank);
+  SmTeam<NL, SM_TEAM> tm{slots + team * SM_WORDS, mask, rank};
+  store_split<NL>(tm, x3 + i, y3 + i, z3 + i, n, ec_add_team<NL>(tm, P, Q, md));
+}
+
+// K4: keys (K, M); xy (K, 2*NL, M), rows 0..NL-1 the x limbs and NL..2NL-1
+// the y limbs (the reference's packed stream); out (K, NL, M) x 3, slot
+// (k, m) lane m's accumulator after entry k. Team m walks lane m (ec.cuh
+// flush_lane): the teams of a warp hold neighbouring lanes, so their loads
+// and stores of a limb share sectors.
+constexpr int FS_THREADS = 128;
+constexpr int FS_LANES = FS_THREADS / SM_TEAM;
+
+__global__ void __launch_bounds__(FS_THREADS)
+flush_scan_kernel(MD md, const int* __restrict__ keys, const uint32_t* __restrict__ xy,
+                  uint32_t* __restrict__ ex, uint32_t* __restrict__ ey,
+                  uint32_t* __restrict__ ez, int K, int M) {
+  const int team = threadIdx.x / SM_TEAM;
+  const int m = blockIdx.x * FS_LANES + team;
+  if (m >= M) return;  // a whole team
+  __shared__ uint32_t slots[FS_LANES * SM_WORDS];
+  const int rank = threadIdx.x % SM_TEAM;
+  const unsigned mask = ((1u << SM_TEAM) - 1) << ((threadIdx.x & 31) - rank);
+  SmTeam<NL, SM_TEAM> tm{slots + team * SM_WORDS, mask, rank};
+  flush_lane<NL>(tm, keys, xy, ex, ey, ez, K, M, m, md);
+}
+
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
@@ -225,7 +244,7 @@ extern "C" int ctt_ec_add(const uint32_t* mod_words, const void* x1, const void*
                           const void* z2, void* x3, void* y3, void* z3, int n,
                           void* stream) {
   if (n > 0)
-    ec_add_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+    ec_add_kernel<<<(n + SM_LANES - 1) / SM_LANES, SM_THREADS, 0, (cudaStream_t)stream>>>(
         mod_from_words<NL>(mod_words), (const uint32_t*)x1, (const uint32_t*)y1,
         (const uint32_t*)z1, (const uint32_t*)x2, (const uint32_t*)y2,
         (const uint32_t*)z2, (uint32_t*)x3, (uint32_t*)y3, (uint32_t*)z3, n);
@@ -246,7 +265,7 @@ extern "C" int ctt_flush_scan(const uint32_t* mod_words, const void* keys,
                               const void* xy, void* ex, void* ey, void* ez, int K,
                               int M, void* stream) {
   if (M > 0 && K > 0)
-    flush_scan_kernel<<<blocks(M), THREADS, 0, (cudaStream_t)stream>>>(
+    flush_scan_kernel<<<(M + FS_LANES - 1) / FS_LANES, FS_THREADS, 0, (cudaStream_t)stream>>>(
         mod_from_words<NL>(mod_words), (const int*)keys, (const uint32_t*)xy,
         (uint32_t*)ex, (uint32_t*)ey, (uint32_t*)ez, K, M);
   return (int)cudaGetLastError();
