@@ -63,7 +63,11 @@
 3. Holds every kernel against its plain version on the card at the paths'
    shapes (K4-K6 on both the fixed-base and the online commit's streams,
    K4 with a one-run lane, a padding lane and a run of [P, -P, Q, Q, ...];
-   K13 at 2 and 128 lanes, K11 at 2 and 256 pairs, K12 at 1 and 256
+   K5 also at every merge stream the paths feed it, recorded from the entry
+   points: the commit's two rounds, the online commit, the batch of 16
+   dense blobs, the 2^16 MSM and 16 zero blobs, each with its (K2, M2),
+   longest run, adds that need products and time;
+   K13 at 2, 128 and 130 lanes, K11 at 2 and 256 pairs, K12 at 1 and 256
    lanes, K3' at every stage of the 4096 iNTT and 8192 NTT (four-step),
    the (64, 128) FK20 NTT and the (128, 64) cell iNTT; ec_scalar_mul at 64
    lanes x 255 bits with k = 0, 1, r - 1, r, r + 2 and a point at infinity,
@@ -79,8 +83,8 @@
    version takes ~25 s there), and times it; K3 add's device time
    (torch.profiler) beside its call time. Prints the pairing
    kernels' programs (rounds, rounds with a product, the inverse's lone
-   multiplies) and their chain floor, from fe_mul_eo's latency in a lone
-   thread measured here. Times the pairing at B = 256 (bench.py's
+   multiplies) and their chain floor, and K13's, from fe_mul_eo's latency
+   in a lone thread measured here. Times the pairing at B = 256 (bench.py's
    bls12381_pairing_batch256).
 4. Prints the kernels' JSON line, then the result line.
 
@@ -185,13 +189,82 @@ PATH_KERNELS = {
 }
 
 
+def _windows(e: int):
+    """e's 4-bit digits, least significant first, as ops/cuda_g1.py packs
+    them for csrc/g1.cuh."""
+    import numpy as np
+    from constantine_tpu_torch.ops.cuda_g1 import window_words
+    w = window_words(e)
+    return w[:-1].view(np.uint8)[:int(w[-1])].tolist()
+
+
 def k13_muls(p: int, u: int) -> int:
-    """Multiplies of one K13 lane (csrc/g1.cuh): x^3 + 4, the square root's
-    squarings and multiplies, the checks, the ladder over u^2 (a doubling is
-    7, a mixed addition 11) and the comparison."""
-    e, u2 = (p + 1) // 4, u * u
-    return (2 + (e.bit_length() - 1) + (bin(e).count("1") - 1) + 2
+    """Multiplies of one K13 lane (csrc/g1.cuh g1_decompress_team): x^3 + 4,
+    the square root's 14-product window table, 4 squarings a window and a
+    product for each nonzero digit below the top, y^2 and y's canonical
+    form, the ladder over u^2 (a doubling is 7, a mixed addition 11) and
+    the comparison's 5."""
+    d, u2 = _windows((p + 1) // 4), u * u
+    return (2 + 14 + 4 * (len(d) - 1) + sum(1 for w in d[:-1] if w) + 2
             + 7 * (u2.bit_length() - 1) + 11 * (bin(u2).count("1") - 1) + 5)
+
+
+def k13_chain(p: int, u: int, T: int = 4) -> int:
+    """Dependent multiplies of a K13 lane for a team of T: each level of
+    independent products takes ceil(size / T) (the table's levels of 1, 2,
+    4 and 7; y^2 with y's canonical form; a doubling's 3, 2, 1, 1; a mixed
+    addition's 2, 2, 3, 2, 2; the comparison's 3, 2), every squaring and
+    window product one."""
+    d, u2 = _windows((p + 1) // 4), u * u
+
+    def rounds(*levels):
+        return sum(-(-k // T) for k in levels)
+
+    return (2 + rounds(1, 2, 4, 7) + 4 * (len(d) - 1) + sum(1 for w in d[:-1] if w)
+            + rounds(2) + (u2.bit_length() - 1) * rounds(3, 2, 1, 1)
+            + (bin(u2).count("1") - 1) * rounds(2, 2, 3, 2, 2) + rounds(3, 2))
+
+
+def record_merges(pec, fn):
+    """The inputs of every merge_scan call that fn makes, cloned."""
+    seen = []
+    orig = pec.merge_scan
+
+    def rec(keys, qx, qy, qz):
+        seen.append(tuple(t.clone() for t in (keys, qx, qy, qz)))
+        return orig(keys, qx, qy, qz)
+
+    pec.merge_scan = rec
+    try:
+        fn()
+    finally:
+        del pec.merge_scan
+    return seen
+
+
+def merge_work(keys, qz, ez):
+    """What a merge stream asks of K5: its longest run of a key > 0, the
+    adds that need products (the key stays, > 0, and neither the entry nor
+    the accumulator before it is infinity: ez is the scan's output), and the
+    most of those in one lane and in one run."""
+    import numpy as np
+    k = keys.cpu().numpy()
+    qinf = (qz == 0).all(1).cpu().numpy()
+    einf = (ez == 0).all(1).cpu().numpy()
+    same = np.zeros_like(k, dtype=bool)
+    same[1:] = k[1:] == k[:-1]
+    same[0] = k[0] == -1
+    add = same & (k > 0) & ~qinf
+    add[1:] &= ~einf[:-1]
+    add[0] = False
+    start = np.ones(k.T.shape, dtype=bool)
+    start[:, 1:] = k.T[:, 1:] != k.T[:, :-1]
+    ids = np.cumsum(start.reshape(-1)) - 1
+    lengths = np.bincount(ids)
+    run_key = k.T.reshape(-1)[start.reshape(-1)]
+    pos = lengths[run_key > 0]
+    return (int(pos.max()) if pos.size else 0, int(add.sum()), int(add.sum(0).max()),
+            int(np.bincount(ids, weights=add.T.reshape(-1)).max()))
 
 
 PROGRAM_STATS = ("T", "rounds", "product rounds", "inverse multiplies", "products", "sums",
@@ -1022,13 +1095,13 @@ def main():
                 v[1, :, lane] = v[0, :, lane]
         yT[1, :, 1] = F.neg(yT[1, :, 1][None])[0]
         zT[0, :, 2] = 0
-        both = ((kT[1:] == kT[:-1]) & (kT[1:] > 0)).sum().item()
-        record("merge_scan", pec.merge_scan(kT, xT, yT, zT),
-               pec._merge_scan_plain(kT, xT, yT, zT),
+        want5 = pec._merge_scan_plain(kT, xT, yT, zT)
+        record("merge_scan", pec.merge_scan(kT, xT, yT, zT), want5,
                lambda: pec.merge_scan(kT, xT, yT, zT),
                lambda: pec._merge_scan_plain(kT, xT, yT, zT),
-               kT.numel() * (4 + 6 * FE_BYTES), MULS["add"] * both, reps=10,
-               label=f"merge_scan {tag} K2=32 M2={M2}", keep=keep)
+               kT.numel() * (4 + 6 * FE_BYTES), MULS["add"] * merge_work(kT, zT, want5[2])[1],
+               reps=20, label=f"merge_scan {tag} K2=32 M2={M2} (degenerate lanes 0-2)",
+               keep=keep)
 
         # K6 on the bucket planes; lane 0: B1 = B0, lane 1: B1 = -B0,
         # lane 2: B2 = infinity
@@ -1110,6 +1183,39 @@ def main():
               f"{madds} madds, longest run {longest_run(keys4)} steps", flush=True)
     del k4_streams
 
+    # K5 at every merge stream the paths feed it, recorded from the entry
+    # points (the fixed-base commit's two rounds, the online commit, the
+    # batch of 16 dense blobs, the 2^16 MSM, 16 zero blobs): exact against
+    # the plain version, then timed beside its bound (the adds that need
+    # products: the key stays, > 0, and neither side is infinity)
+    dense16 = seeded + [dense_blob(s_, r) for s_ in range(113, 117)]
+    merge_calls = (
+        ("commit", lambda: eip4844.blob_to_kzg_commitment(blobs["dense1"], kzg)),
+        ("online commit", lambda: eip4844.blob_to_kzg_commitment(blobs["dense1"], kzo)),
+        ("batch 16 dense", lambda: eip4844.blob_to_kzg_commitment_batch(dense16, kzg)),
+        ("msm 2^16", lambda: msm(g, bases, k16)),
+        ("batch 16 zero blobs", lambda: eip4844.blob_to_kzg_commitment_batch(
+            [blobs["zero"]] * 16, kzg)))
+    for label, fn in merge_calls:
+        recorded = record_merges(pec, fn)
+        check(recorded, f"{label}: no merge_scan call recorded")
+        for rnd, (kM, xM, yM, zM) in enumerate(recorded, 1):
+            K2, M2 = kM.shape
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want5 = pec._merge_scan_plain(kM, xM, yM, zM)
+            torch.cuda.synchronize()
+            plain5 = (time.perf_counter() - t0) * 1e3
+            same(pec.merge_scan(kM, xM, yM, zM), want5,
+                 f"merge_scan {label} round {rnd} K2={K2} M2={M2}")
+            ms5 = cuda_ms(torch, lambda: pec.merge_scan(kM, xM, yM, zM), 20)
+            longest, adds, lane_max, run_max = merge_work(kM, zM, want5[2])
+            bms5, by5 = bound(kM.numel() * (4 + 6 * FE_BYTES), MULS["add"] * adds)
+            print(f"check merge_scan {label} round {rnd} K2={K2} M2={M2}: exact (plain "
+                  f"{plain5:.1f} ms); kernel {ms5:.4f} ms a call (CUDA events), bound "
+                  f"{bms5:.6f} ms ({by5}); longest run {longest} (key > 0), {adds} adds with "
+                  f"products, at most {lane_max} a lane and {run_max} a run", flush=True)
+
     # K3 add at the tail's width (C = 512 chunk lanes), with P == Q, P == -Q,
     # infinity on either side, and P == Q under another Z
     run, _ = pec.bucket_reduce(bx, by, bz, T)
@@ -1186,9 +1292,11 @@ def main():
                2 * n9 * FE_BYTES, fermat_muls * n9, reps=10,
                label=f"fermat_inv n={n9}", keep=n9 == 512)
 
-    # K13 at the single verify's 2 lanes (commitment, proof) and the batch's 128
+    # K13 at the single verify's 2 lanes (commitment, proof), the batch's 128
+    # and the cell verify's 130 (two commitments and 128 proofs)
     k13_lane = k13_muls(ctx.p, ctx.params.x_param)
-    for data, keep in ((C1 + P1, True), (b"".join(bcs) + b"".join(bps), False)):
+    for data, keep in ((C1 + P1, True), (b"".join(bcs) + b"".join(bps), False),
+                       (C1g + C2g + b"".join(proofs[1]), False)):
         x13, s13, _, _ = parse_g1_host(data)
         xm13 = F.to_mont(lb.to_tensor(x13, dev))
         sg13 = torch.as_tensor(s13, device=dev)
@@ -1257,6 +1365,12 @@ def main():
               + f"; chain floor {floor_ms:.4f} ms; kernel {report[name]['ms']:.4f} ms at the "
               f"verify's B = {1 if name == 'final_exp' else 2}, "
               f"{report[name]['ms'] / floor_ms:.2f}x the floor", flush=True)
+    k13_steps = k13_chain(ctx.p, ctx.params.x_param)
+    floor13 = k13_steps * lat_us * 1e-3
+    print(f"g1_decompress lane: {k13_lane} multiplies, {k13_steps} of them dependent for a team "
+          f"of 4; chain floor {floor13:.4f} ms, bound {report['g1_decompress']['bound_ms']:.6f} "
+          f"ms; kernel {report['g1_decompress']['ms']:.4f} ms at the verify's 2 lanes, "
+          f"{report['g1_decompress']['ms'] / floor13:.2f}x the floor", flush=True)
     # K3' at every stage of the paths' transforms, each stage's input the
     # transform's own: the blob's 4096 iNTT and its 8192 extension NTT (the
     # four-step's column and row stages), the FK20 NTT over (64, 128) and the

@@ -7,8 +7,8 @@
 // case selects as the reference, so every output is limb-identical. Below
 // them, the same group law in levels of independent products for a team of
 // threads over the two-chain multiply fe_mul_eo: the scalar-multiplication
-// ladder of ec_scalar_mul, the team add of ec_add, and the team madd and
-// lane walk of flush_scan.
+// ladder of ec_scalar_mul, the team add of ec_add, the team madd and lane
+// walk of flush_scan, and merge_scan's runs.
 //
 // Layout: an element is N little-endian 32-bit limbs in Montgomery form with
 // R = 2^(32N) -- the reference's R, since its 16-bit digits pair into these
@@ -613,24 +613,29 @@ struct SmTeam {
 
 // out[i] = a[i] * b[i] for the K independent products of one level: member
 // r computes products r, r + T, ... (a member without one repeats the
-// round's first), and every member gets them all.
+// round's first), and every member gets them all. A level of one product
+// is computed by every member, with no exchange.
 template <int N, int K, class Team>
 CTT_HD void mul_level(Team& tm, const Fe<N> (&a)[K], const Fe<N> (&b)[K], Fe<N> (&out)[K],
                       const Mod<N>& M) {
+  if constexpr (K == 1) {
+    out[0] = fe_mul_eo<N>(a[0], b[0], M);
+  } else {
 #pragma unroll
-  for (int r0 = 0; r0 < K; r0 += Team::T) {
-    Fe<N> x = a[r0], y = b[r0];
+    for (int r0 = 0; r0 < K; r0 += Team::T) {
+      Fe<N> x = a[r0], y = b[r0];
 #pragma unroll
-    for (int j = 1; j < Team::T; ++j) {
-      const int i = r0 + j < K ? r0 + j : r0;
-      x = fe_sel<N>(tm.rank == j, a[i], x);
-      y = fe_sel<N>(tm.rank == j, b[i], y);
+      for (int j = 1; j < Team::T; ++j) {
+        const int i = r0 + j < K ? r0 + j : r0;
+        x = fe_sel<N>(tm.rank == j, a[i], x);
+        y = fe_sel<N>(tm.rank == j, b[i], y);
+      }
+      tm.put(fe_mul_eo<N>(x, y, M));
+#pragma unroll
+      for (int j = 0; j < Team::T; ++j)
+        if (r0 + j < K) out[r0 + j] = tm.get(j);
+      tm.next();
     }
-    tm.put(fe_mul_eo<N>(x, y, M));
-#pragma unroll
-    for (int j = 0; j < Team::T; ++j)
-      if (r0 + j < K) out[r0 + j] = tm.get(j);
-    tm.next();
   }
 }
 
@@ -855,6 +860,65 @@ CTT_HD void flush_lane(Team& tm, const int32_t* keys, const uint32_t* xy, uint32
     key = nkey;
     X2 = nX;
     Y2 = nY;
+  }
+}
+
+// -- merge_scan's runs ----------------------------------------------------------
+//
+// The stream is planar: keys (K, nl), entries qx, qy, qz (K, N, nl) each
+// (Jacobian partial sums), outputs the same. Lane m's scan starts from
+// infinity under key -1; at each slot Q' is the entry with its Z zeroed
+// where key <= 0, and acc becomes ec_add(acc, Q') where the key equals the
+// last one, else Q'. Every slot holds its post-step acc.
+//
+// A team owns the runs of equal keys that start in slots [k0, k1) of lane m
+// and carries each to its end, past k1 if need be; the slots before the
+// first of them belong to a run that started earlier, and its team writes
+// them. The team computes products only where they change the result:
+//   - a restart is Q' (a select);
+//   - under a key <= 0, Q' is at infinity, so every add returns acc: the
+//     whole run is its first slot (or infinity, for a run of key -1 at
+//     slot 0, which the scan adds into its starting infinity), and its
+//     entries are never loaded;
+//   - an add of an entry at infinity returns acc, an add into acc at
+//     infinity returns the entry (ec_add's own selects).
+// What is left is ec_add_team, at one place in the loop, so the teams of a
+// warp that add at the same step of their runs add together. Each branch
+// depends only on the keys and on which partial sums are infinity, the
+// same for every member of the team, and every slot gets the limbs of the
+// sequential scan (the reference kernel runs the add and selects at every
+// slot, branch-free).
+template <int N, class Team>
+CTT_HD void merge_runs(Team& tm, const int32_t* keys, const uint32_t* qx, const uint32_t* qy,
+                       const uint32_t* qz, uint32_t* ex, uint32_t* ey, uint32_t* ez, int K,
+                       int nl, int m, int k0, int k1, const Mod<N>& M) {
+  const size_t snl = (size_t)nl;
+  int s = k0;
+  if (k0 > 0) {
+    const int before = keys[(k0 - 1) * snl + m];
+    while (s < k1 && keys[s * snl + m] == before) ++s;
+  }
+  if (s >= k1) return;
+  Jac<N> acc = jac_infinity<N>(M);
+  int key = s == 0 ? -1 : keys[(s - 1) * snl + m];
+  int kk = keys[s * snl + m];
+  for (int k = s;; ++k) {
+    const bool restart = kk != key;
+    const int kn = k + 1 < K ? keys[(k + 1) * snl + m] : 0;
+    const size_t o = k * N * snl + m;
+    if (restart || kk > 0) {
+      Jac<N> Q{load_col<N>(qx + o, snl), load_col<N>(qy + o, snl), fe_zero<N>()};
+      if (kk > 0) Q.Z = load_col<N>(qz + o, snl);
+      const bool add = !restart && !fe_is_zero<N>(Q.Z) && !fe_is_zero<N>(acc.Z);
+      if (add)
+        acc = ec_add_team<N>(tm, acc, Q, M);
+      else if (restart || !fe_is_zero<N>(Q.Z))
+        acc = Q;
+    }
+    store_split<N>(tm, ex + o, ey + o, ez + o, snl, acc);
+    if (k + 1 >= K || (kn != kk && k + 1 >= k1)) break;
+    key = kk;
+    kk = kn;
   }
 }
 

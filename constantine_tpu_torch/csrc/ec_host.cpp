@@ -6,7 +6,8 @@
 //
 // Arrays are row-major (n, 12) u32 limbs in Montgomery form; mod_words is
 // p[12], m0, one[12] as in ec.cuh. The flush scan's entries take the
-// kernel's planar stream instead: keys (K, M), xy (K, 24, M), out (K, 12, M).
+// kernel's planar stream instead: keys (K, M), xy (K, 24, M), out (K, 12, M);
+// the merge scan's, keys (K, M) and q, out (K, 12, M) x 3.
 #include "ec.cuh"
 
 using namespace ctt;
@@ -159,6 +160,25 @@ extern "C" void ctt_host_flush_scan_seq(const uint32_t* mod_words, const int32_t
       const size_t o = k * NL * nl + m;
       store_split<NL>(tm, ex + o, ey + o, ez + o, nl, acc);
     }
+  }
+}
+
+// K5's runs (ec.cuh merge_runs) for every team of a launch with chunks of
+// Lc slots (team g: lane g mod M, slots from (g / M) Lc), a team of one
+// after the other, in the kernel's team order or reversed. keys (K, M),
+// q and out (K, 12, M) planar.
+extern "C" void ctt_host_merge_scan_runs(const uint32_t* mod_words, const int32_t* keys,
+                                         const uint32_t* qx, const uint32_t* qy,
+                                         const uint32_t* qz, uint32_t* ex, uint32_t* ey,
+                                         uint32_t* ez, int K, int M, int Lc, int reverse) {
+  const Mod<NL> md = mod_from_words<NL>(mod_words);
+  const long long teams = (long long)M * ((K + Lc - 1) / Lc);
+  for (long long t = 0; t < teams; ++t) {
+    const long long g = reverse ? teams - 1 - t : t;
+    const int m = (int)(g % M), k0 = (int)(g / M) * Lc;
+    Solo<NL> tm;
+    merge_runs<NL>(tm, keys, qx, qy, qz, ex, ey, ez, K, M, m, k0, k0 + Lc < K ? k0 + Lc : K,
+                   md);
   }
 }
 

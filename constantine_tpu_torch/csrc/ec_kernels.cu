@@ -23,9 +23,10 @@
 // multiplies (~3,300 products) and an add 16 (~4,800) against 72-144 bytes
 // of input per step (chip_smoke.py `bound` counts the multiplies these
 // inputs need). One thread a lane runs them as one dependent chain, far
-// above that bound on the widths the paths use; three kernels shorten the
-// chain with a team of threads a lane (ec.cuh: a level's independent
-// products side by side, over the two-chain multiply fe_mul_eo).
+// above that bound on the widths the paths use; four kernels shorten the
+// chain with a team of threads a lane or a run (ec.cuh: a level's
+// independent products side by side, over the two-chain multiply
+// fe_mul_eo).
 //
 // K4 flush_scan replaces pallas_ec.py:616-764. The reference sweeps each of
 // M = 512-1,024 lanes through K = 120-1,472 steps; one thread a lane kept 4-8
@@ -42,6 +43,22 @@
 // between them) set the time, far above the multiplies' operations bound
 // (chip_smoke.py `bound`). The walk is the same whatever the keys: a
 // restart is a select.
+//
+// K5 merge_scan replaces pallas_ec.py:766-851. The reference walks each of
+// M2 = 128-1,152 lanes through K2 = 32 slots with an add and a select at
+// every one; one thread a lane ran 32 dependent ec_adds (1.7-1.8 ms). But
+// the merge stream's runs of equal keys are short (at most 27 slots in the
+// paths' streams, mostly 1-3), its key <= 0 padding fills whole lanes, and
+// an add with an operand at infinity is a select. Here a team of SM_TEAM
+// threads owns the runs that start in a chunk of MS_CHUNK slots of a lane
+// (ec.cuh merge_runs; MS_CHUNK = 1, a team a run, was the fastest on the
+// H100; chunks of 2-4 slots up to 1.26x slower), carries each to its end, and
+// computes ec_add_team (16 products in 5 rounds) only where both operands
+// are finite under a key > 0; a restart or a skipped add is a select, so
+// every slot keeps the sequential scan's limbs. The branches depend only on
+// the keys and on which partial sums are infinity, uniform across a team
+// (the reference is branch-free). A launch takes the longest run's chain
+// of team adds (~7 us each), plus its wrapper's host cost.
 //
 // K3 add (ctt_ec_add) replaces PallasEC._elemwise's add (pallas_ec.py:
 // 525-560): a team of SM_TEAM threads a lane runs ec_add_team, 16 products
@@ -95,29 +112,6 @@ __global__ void ec_double_k_kernel(MD md, const uint32_t* x, const uint32_t* y,
   store(ox, n, i, P.X);
   store(oy, n, i, P.Y);
   store(oz, n, i, P.Z);
-}
-
-// Same scan over Jacobian partial sums; entries with key <= 0 are neutral.
-__global__ void merge_scan_kernel(MD md, const int* __restrict__ keys,
-                                  const uint32_t* __restrict__ qx,
-                                  const uint32_t* __restrict__ qy,
-                                  const uint32_t* __restrict__ qz, uint32_t* ex,
-                                  uint32_t* ey, uint32_t* ez, int K, int M) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  J acc = jac_infinity<NL>(md);
-  int cur = -1;
-  for (int k = 0; k < K; ++k) {
-    const int kk = keys[(size_t)k * M + m];
-    const size_t off = (size_t)k * NL * M;
-    J Q{load(qx + off, M, m), load(qy + off, M, m), load(qz + off, M, m)};
-    if (kk <= 0) Q.Z = fe_zero<NL>();
-    acc = (kk == cur) ? ec_add<NL>(acc, Q, md) : Q;
-    cur = kk;
-    store(ex + off, M, m, acc.X);
-    store(ey + off, M, m, acc.Y);
-    store(ez + off, M, m, acc.Z);
-  }
 }
 
 // Per lane c: run = sum_t B[t, c], wsum = sum_t (T-1-t) * B[t, c], by the
@@ -235,6 +229,30 @@ flush_scan_kernel(MD md, const int* __restrict__ keys, const uint32_t* __restric
   flush_lane<NL>(tm, keys, xy, ex, ey, ez, K, M, m, md);
 }
 
+// K5: keys (K, M); q and out (K, NL, M) x 3. A team of SM_TEAM threads
+// owns the runs that start in a chunk of MS_CHUNK slots of a lane (ec.cuh
+// merge_runs); team g holds lane g mod M, chunk g / M, so the teams of a
+// warp hold neighbouring lanes at the same slots.
+constexpr int MS_CHUNK = 1;      // slots a team starts runs in (PERF.md: chosen on the H100)
+constexpr int MS_THREADS = 128;
+constexpr int MS_LANES = MS_THREADS / SM_TEAM;
+
+__global__ void __launch_bounds__(MS_THREADS)
+merge_scan_kernel(MD md, const int* __restrict__ keys, const uint32_t* __restrict__ qx,
+                  const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,
+                  uint32_t* __restrict__ ex, uint32_t* __restrict__ ey,
+                  uint32_t* __restrict__ ez, int K, int M, long long teams) {
+  const int team = threadIdx.x / SM_TEAM;
+  const long long g = (long long)blockIdx.x * MS_LANES + team;
+  if (g >= teams) return;  // a whole team
+  __shared__ uint32_t slots[MS_LANES * SM_WORDS];
+  const int rank = threadIdx.x % SM_TEAM;
+  const unsigned mask = ((1u << SM_TEAM) - 1) << ((threadIdx.x & 31) - rank);
+  SmTeam<NL, SM_TEAM> tm{slots + team * SM_WORDS, mask, rank};
+  const int m = (int)(g % M), k0 = (int)(g / M) * MS_CHUNK;
+  merge_runs<NL>(tm, keys, qx, qy, qz, ex, ey, ez, K, M, m, k0, min(k0 + MS_CHUNK, K), md);
+}
+
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
@@ -275,11 +293,14 @@ extern "C" int ctt_merge_scan(const uint32_t* mod_words, const void* keys,
                               const void* qx, const void* qy, const void* qz,
                               void* ex, void* ey, void* ez, int K, int M,
                               void* stream) {
-  if (M > 0 && K > 0)
-    merge_scan_kernel<<<blocks(M), THREADS, 0, (cudaStream_t)stream>>>(
+  if (M > 0 && K > 0) {
+    const long long teams = (long long)M * ((K + MS_CHUNK - 1) / MS_CHUNK);
+    merge_scan_kernel<<<(unsigned)((teams + MS_LANES - 1) / MS_LANES), MS_THREADS, 0,
+                        (cudaStream_t)stream>>>(
         mod_from_words<NL>(mod_words), (const int*)keys, (const uint32_t*)qx,
         (const uint32_t*)qy, (const uint32_t*)qz, (uint32_t*)ex, (uint32_t*)ey,
-        (uint32_t*)ez, K, M);
+        (uint32_t*)ez, K, M, teams);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,13 @@
 // program is scheduled for (the kernels' is a constant of miller_loop.cu and
 // final_exp.cu); reverse plays the members of each round from the last to
 // the first, which changes the result if two tasks of a round touch one slot.
+// K13's team lane runs with a team of one, or with a thread for each member
+// of a team of T, the members meeting at a barrier where the card's meet at
+// __syncwarp.
+#include <condition_variable>
 #include <cstddef>
+#include <mutex>
+#include <thread>
 #include <vector>
 
 #include "g1.cuh"
@@ -70,6 +76,75 @@ void miller(const PairingConsts& C, int T, bool reverse, const uint32_t* xp, con
                                          xq + (size_t)i * 2 * FPN, xq + (size_t)i * 2 * FPN + FPN,
                                          yq + (size_t)i * 2 * FPN, yq + (size_t)i * 2 * FPN + FPN};
     run_lane(P, C, MILLER_INPUTS, [&](int k) { return in[k]; }, reverse, out + (size_t)i * W12);
+  }
+}
+
+// A barrier for n threads, reusable.
+class Barrier {
+ public:
+  explicit Barrier(int n) : n_(n) {}
+  void wait() {
+    std::unique_lock<std::mutex> lock(m_);
+    const unsigned gen = gen_;
+    if (++count_ == n_) {
+      count_ = 0;
+      ++gen_;
+      cv_.notify_all();
+    } else {
+      cv_.wait(lock, [&] { return gen_ != gen; });
+    }
+  }
+
+ private:
+  std::mutex m_;
+  std::condition_variable cv_;
+  int n_, count_ = 0;
+  unsigned gen_ = 0;
+};
+
+// ec.cuh's SmTeam with host threads: the same two sets of T product slots,
+// alternating between rounds, and one barrier a round.
+template <int kT>
+struct ThreadTeam {
+  static constexpr int T = kT;
+  uint32_t* slots;
+  Barrier* bar;
+  int rank;
+  int par = 0;
+  void sync() const { bar->wait(); }
+  void put(const Fp& p) {
+    fp_store(slots + (par * T + rank) * FPN, p);
+    sync();
+  }
+  Fp get(int j) const { return fp_load(slots + (par * T + j) * FPN); }
+  void next() { par ^= 1; }
+};
+
+// K13's team lane on lanes [0, n): a team of one, or kT threads a lane.
+template <int kT>
+void g1_team_lanes(const G1DecompressConsts& C, const uint32_t* xm, const int32_t* sign,
+                   uint32_t* y, int32_t* ok, int n) {
+  std::vector<uint32_t> tab(15 * FPN), slots(2 * kT * FPN);
+  for (int i = 0; i < n; ++i) {
+    auto member = [&](auto& tm) {
+      Fp yi;
+      const bool good =
+          g1_decompress_team(tm, tab.data(), fp_load(xm + (size_t)i * FPN), sign[i] != 0, yi, C);
+      g1_store_team(tm, y + (size_t)i * FPN, ok + i, yi, good);
+    };
+    if constexpr (kT == 1) {
+      Solo<FPN> tm;
+      member(tm);
+    } else {
+      Barrier bar(kT);
+      std::vector<std::thread> threads;
+      for (int r = 0; r < kT; ++r)
+        threads.emplace_back([&, r] {
+          ThreadTeam<kT> tm{slots.data(), &bar, r};
+          member(tm);
+        });
+      for (auto& t : threads) t.join();
+    }
   }
 }
 
@@ -136,5 +211,20 @@ extern "C" void ctt_host_g1_decompress(const void* consts, const uint32_t* xm,
     Fp yi;
     ok[i] = g1_decompress_lane(fp_load(xm + (size_t)i * FPN), sign[i] != 0, yi, C) ? 1 : 0;
     fp_store(y + (size_t)i * FPN, yi);
+  }
+}
+
+// K13's team lane (g1.cuh g1_decompress_team) with a team of T = 1, or of
+// T = 2 or 4 threads a lane, each storing its share of the outputs.
+// Returns -1 for another T.
+extern "C" int ctt_host_g1_decompress_team(const void* consts, int T, const uint32_t* xm,
+                                           const int32_t* sign, uint32_t* y, int32_t* ok,
+                                           int n) {
+  const G1DecompressConsts& C = *(const G1DecompressConsts*)consts;
+  switch (T) {
+    case 1: g1_team_lanes<1>(C, xm, sign, y, ok, n); return 0;
+    case 2: g1_team_lanes<2>(C, xm, sign, y, ok, n); return 0;
+    case 4: g1_team_lanes<4>(C, xm, sign, y, ok, n); return 0;
+    default: return -1;
   }
 }

@@ -24,9 +24,23 @@ from .sqrt import sqrt_3mod4
 from .subgroups import is_in_subgroup_g1, scott_beta
 
 
+SQRT_WINDOWS = 96      # csrc/g1.cuh: 4-bit windows of an exponent < 2^384
+
+
 def exp_words(e: int, NL: int) -> np.ndarray:
     """A host exponent as the kernels' FpExp: NL words, then the bit length."""
     return np.concatenate([lb.int_to_limbs(e, NL), [e.bit_length()]]).astype(np.uint32)
+
+
+def window_words(e: int) -> np.ndarray:
+    """e's 4-bit digits, least significant first, as G1DecompressConsts holds
+    them: SQRT_WINDOWS bytes, then the count of windows (the top one not 0)."""
+    nwin = -(-e.bit_length() // 4)
+    if not 0 < nwin <= SQRT_WINDOWS:
+        raise ValueError(f"an exponent of {e.bit_length()} bits has no {SQRT_WINDOWS} windows")
+    digits = np.zeros(SQRT_WINDOWS, np.uint8)
+    digits[:nwin] = [(e >> (4 * i)) & 15 for i in range(nwin)]
+    return np.concatenate([digits.view(np.uint32), [nwin]]).astype(np.uint32)
 
 
 class CudaG1:
@@ -40,10 +54,11 @@ class CudaG1:
         self.beta_mont = F.encode(scott_beta(p, r, u, ctx.g))
         self._half = F.from_int((p + 1) // 2)
         self._plain_mul = functools.partial(mont_mul_plain, F=F)
-        # G1DecompressConsts: Mod, beta, (p+1)/2, (p+1)/4, u^2
+        # G1DecompressConsts: Mod, beta, (p+1)/2, (p+1)/4, u^2, (p+1)/4's digits
         self._consts = np.concatenate([
             F.mod_words, lb.to_numpy(self.beta_mont), lb.to_numpy(self._half),
-            exp_words((p + 1) // 4, F.NL), exp_words(u * u, F.NL)]).astype(np.uint32)
+            exp_words((p + 1) // 4, F.NL), exp_words(u * u, F.NL),
+            window_words((p + 1) // 4)]).astype(np.uint32)
         self._checked = False
 
     def decompress(self, x_canon, sign_big):
