@@ -6,8 +6,8 @@
 1. Builds every kernel of constantine_tpu_torch/csrc with nvcc for sm_90a
    and checks each against its plain PyTorch version at small shapes (K7
    with an infinity lane and a Y = 0 lane; K8-K10 and Field.batch_inv over
-   Fp and Fr; K13 on G1 points with both signs, a non-square x, an on-curve
-   point outside G1 and x = 0 lanes; K11 on the generators, a pair with
+   Fp and Fr, K9 also at 0, 1 and p - 1; K13 on G1 points with both signs,
+   a non-square x, an on-curve point outside G1 and x = 0 lanes; K11 on the generators, a pair with
    P = -P', a pair with P and Q both negated, and a batch of one; K12 on
    f = 1 and on Miller outputs; K3' ntt_bfly and ntt_twm with 0, 1, r - 1
    lanes and w = 1).
@@ -67,6 +67,10 @@
    points: the commit's two rounds, the online commit, the batch of 16
    dense blobs, the 2^16 MSM and 16 zero blobs, each with its (K2, M2),
    longest run, adds that need products and time;
+   K7 at the online commit's (W, c) = (15, 9) and the 2^16 MSM's (11, 12)
+   with an infinity lane and a Y = 0 lane,
+   K9 over Fp at 512, 16 and 1 lanes and over Fr at what compute_kzg_proof
+   hands it (eval_at's 512 chained lanes, the quotient's one) and at 16,
    K13 at 2, 128 and 130 lanes, K11 at 2 and 256 pairs, K12 at 1 and 256
    lanes, K3' at every stage of the 4096 iNTT and 8192 NTT (four-step),
    the (64, 128) FK20 NTT and the (128, 64) cell iNTT; ec_scalar_mul at 64
@@ -83,8 +87,9 @@
    version takes ~25 s there), and times it; K3 add's device time
    (torch.profiler) beside its call time. Prints the pairing
    kernels' programs (rounds, rounds with a product, the inverse's lone
-   multiplies) and their chain floor, and K13's, from fe_mul_eo's latency
-   in a lone thread measured here. Times the pairing at B = 256 (bench.py's
+   multiplies) and their chain floor, and K13's and K7's (3 rounds a
+   doubling), from fe_mul_eo's latency in a lone thread measured here, and
+   K9's divsteps, batches and word operations a lane (its bound's count). Times the pairing at B = 256 (bench.py's
    bls12381_pairing_batch256).
 4. Prints the kernels' JSON line, then the result line.
 
@@ -212,7 +217,7 @@ def k13_muls(p: int, u: int) -> int:
 def k13_chain(p: int, u: int, T: int = 4) -> int:
     """Dependent multiplies of a K13 lane for a team of T: each level of
     independent products takes ceil(size / T) (the table's levels of 1, 2,
-    4 and 7; y^2 with y's canonical form; a doubling's 3, 2, 1, 1; a mixed
+    4 and 7; y^2 with y's canonical form; a doubling's 3, 3, 1; a mixed
     addition's 2, 2, 3, 2, 2; the comparison's 3, 2), every squaring and
     window product one."""
     d, u2 = _windows((p + 1) // 4), u * u
@@ -221,25 +226,57 @@ def k13_chain(p: int, u: int, T: int = 4) -> int:
         return sum(-(-k // T) for k in levels)
 
     return (2 + rounds(1, 2, 4, 7) + 4 * (len(d) - 1) + sum(1 for w in d[:-1] if w)
-            + rounds(2) + (u2.bit_length() - 1) * rounds(3, 2, 1, 1)
+            + rounds(2) + (u2.bit_length() - 1) * rounds(3, 3, 1)
             + (bin(u2).count("1") - 1) * rounds(2, 2, 3, 2, 2) + rounds(3, 2))
+
+
+def record_calls(obj, name, fn):
+    """The tensor arguments of every call of obj.<name> that fn makes,
+    cloned."""
+    seen = []
+    orig = getattr(obj, name)
+
+    def rec(*args):
+        seen.append(tuple(t.clone() for t in args))
+        return orig(*args)
+
+    setattr(obj, name, rec)
+    try:
+        fn()
+    finally:
+        delattr(obj, name)
+    return seen
 
 
 def record_merges(pec, fn):
     """The inputs of every merge_scan call that fn makes, cloned."""
-    seen = []
-    orig = pec.merge_scan
+    return record_calls(pec, "merge_scan", fn)
 
-    def rec(keys, qx, qy, qz):
-        seen.append(tuple(t.clone() for t in (keys, qx, qy, qz)))
-        return orig(keys, qx, qy, qz)
 
-    pec.merge_scan = rec
-    try:
-        fn()
-    finally:
-        del pec.merge_scan
-    return seen
+# Word operations in csrc/inv.cuh's safegcd: one divstep (shifts, masks,
+# xors, adds: 28), and per limb of the batch's matrix applied to f and g (4
+# multiply-adds, 2 operations each, 2 masks and 2 shifts) and to d and e (6
+# multiply-adds, 2 masks, 2 shifts).
+DIVSTEP_OPS = 28
+MATRIX_LIMB_OPS = (2 * 4 + 4) + (2 * 6 + 4)
+
+
+def inv_batches(m: int):
+    """K9's divsteps for the modulus m (Bernstein-Yang's bound, csrc/inv.cuh),
+    its batches of INV_BITS (read from inv.cuh) and the word operations of a
+    lane, the bound's count: each batch's divsteps and its matrix on f, g, d
+    and e of L = ceil((32 N + 2) / INV_BITS) limbs, then one N-limb fe_mul
+    (the final normalisation's few passes over L limbs left out)."""
+    import re
+    bits = int(re.search(r"constexpr int INV_BITS = (\d+);",
+                         (ROOT / "constantine_tpu_torch/csrc/inv.cuh").read_text()).group(1))
+    d = m.bit_length()
+    n = 12 if d > 256 else 8
+    steps = (49 * d + 57) // 17 if d >= 46 else (49 * d + 80) // 17
+    batches = -(-steps // bits)
+    limbs = -(-(32 * n + 2) // bits)
+    ops = batches * (bits * DIVSTEP_OPS + limbs * MATRIX_LIMB_OPS) + 2 * (2 * n * n + n)
+    return steps, bits, batches, ops
 
 
 def merge_work(keys, qz, ez):
@@ -1028,6 +1065,7 @@ def main():
                                 plain_ms=plain_ms, bound_ms=bms, bound_by=by)
         print(f"check {label}: exact; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
               f"bound {bms:.6f} ms ({by})", flush=True)
+        return ms
 
     poly, _ = eip4844.blob_to_polynomial(blobs["dense1"])
     digits = _signed_digits(lb.to_tensor(poly, dev), kzg._pm.c, kzg._pm.W).reshape(1, -1)
@@ -1252,15 +1290,21 @@ def main():
     add_times(f"{C} lanes (the tail)", Pp, Qp, report["ec_add"]["ms"])
 
     # K7 at the online commit's (NL, 15), c = 9 and the 2^16 MSM's (NL, 11),
-    # c = 12; inputs: Jacobian table points (Z != 1)
+    # c = 12; inputs: Jacobian table points (Z != 1), lane 1 at infinity and
+    # lane 3 with Y = 0 (both infinity out)
+    k7_ms = {}
     for W7, c7, keep in ((15, 9, True), (11, 12, False)):
         P7 = planar(g.double(g.from_affine((tabx[:W7], taby[:W7]))))
-        record("scaled_doubles", pec.scaled_doubles(P7, c7, W7),
-               pec._scaled_doubles_plain(P7, c7, W7),
-               lambda: pec.scaled_doubles(P7, c7, W7),
-               lambda: pec._scaled_doubles_plain(P7, c7, W7),
-               6 * W7 * FE_BYTES, MULS["double"] * c7 * W7 * (W7 - 1) // 2, reps=5,
-               label=f"scaled_doubles W={W7} c={c7}", keep=keep)
+        P7[2][:, 1] = 0
+        P7[1][:, 3] = 0
+        check(g.is_inf(std(pec.scaled_doubles(P7, c7, W7))).tolist()
+              == [w in (1, 3) for w in range(W7)], f"scaled_doubles W={W7}: degenerate lanes")
+        k7_ms[W7, c7] = record(
+            "scaled_doubles", pec.scaled_doubles(P7, c7, W7),
+            pec._scaled_doubles_plain(P7, c7, W7), lambda: pec.scaled_doubles(P7, c7, W7),
+            lambda: pec._scaled_doubles_plain(P7, c7, W7), 6 * W7 * FE_BYTES,
+            MULS["double"] * c7 * W7 * (W7 - 1) // 2, reps=5,
+            label=f"scaled_doubles W={W7} c={c7}", keep=keep)
 
     # K8, K10 at the setup's to_affine: 90,112 Z values padded with ones to
     # 98,304 = 32 chains x 3,072 lanes (here the table's x coordinates);
@@ -1284,13 +1328,40 @@ def main():
            lambda: aff._chain_bwd_inv_plain(pe, dC, bpinv),
            (3 * C8 + 1) * Mw * FE_BYTES, 2 * C8 * Mw, reps=20,
            label=f"chain_bwd_inv C={C8} Mw={Mw}")
-    fermat_muls = aff.exp_bits + bin(aff.exp_int).count("1")
+    fp_inv_ops = inv_batches(F.p_int)[3]
     for n9 in (512, 16, 1):
         x9 = bp[:, :n9].contiguous()
         record("fermat_inv", (aff.fermat_inv(x9),), (aff._fermat_inv_plain(x9),),
                lambda: aff.fermat_inv(x9), lambda: aff._fermat_inv_plain(x9),
-               2 * n9 * FE_BYTES, fermat_muls * n9, reps=10,
-               label=f"fermat_inv n={n9}", keep=n9 == 512)
+               2 * n9 * FE_BYTES, n9, reps=10, label=f"fermat_inv n={n9}", keep=n9 == 512,
+               mul_ops=fp_inv_ops)
+    # K9 over Fr at what proving hands it (recorded from compute_kzg_proof:
+    # eval_at's 4,096 denominators chained to 512 lanes, the quotient's one
+    # lane), and over Fp and Fr at 0, 1 and p - 1
+    afr = fr.affine
+    fr_inv_ops = inv_batches(fr.p_int)[3]
+    fr_calls = record_calls(afr, "fermat_inv", lambda: eip4844.compute_kzg_proof(
+        blobs["dense1"], zs["off"], kzg))
+    check([x.shape[1] for (x,) in fr_calls] == [512, 1],
+          f"compute_kzg_proof: Fr fermat_inv calls at {[x.shape for (x,) in fr_calls]}")
+    for (x9,) in fr_calls:
+        n9 = x9.shape[1]
+        record("fermat_inv", (afr.fermat_inv(x9),), (afr._fermat_inv_plain(x9),),
+               lambda: afr.fermat_inv(x9), lambda: afr._fermat_inv_plain(x9),
+               2 * n9 * 4 * fr.NL, n9, reps=10, label=f"fermat_inv Fr n={n9} (prove)",
+               mul_ops=fr_inv_ops, keep=False)
+    x16 = fr_calls[0][0][:, :16].contiguous()
+    same((afr.fermat_inv(x16),), (afr._fermat_inv_plain(x16),), "fermat_inv Fr n=16")
+    for field in (F, fr):
+        m = field.p_int
+        x9 = field.encode([0, 1, m - 1], dev).T.contiguous()
+        got9 = field.affine.fermat_inv(x9)
+        same((got9,), (field.affine._fermat_inv_plain(x9),), f"fermat_inv {field.name} 0, 1, p - 1")
+        check(field.decode(got9.T) == [0, 1, m - 1], f"fermat_inv {field.name}: 0, 1, p - 1")
+        steps, bits, batches, ops = inv_batches(m)
+        print(f"fermat_inv {field.name}: exact at 0, 1 and p - 1; safegcd {steps} divsteps "
+              f"(Bernstein-Yang's bound for {m.bit_length()} bits), {batches} batches of {bits}, "
+              f"{ops} word operations a lane (the bound's count)", flush=True)
 
     # K13 at the single verify's 2 lanes (commitment, proof), the batch's 128
     # and the cell verify's 130 (two commitments and 128 proofs)
@@ -1365,6 +1436,11 @@ def main():
               + f"; chain floor {floor_ms:.4f} ms; kernel {report[name]['ms']:.4f} ms at the "
               f"verify's B = {1 if name == 'final_exp' else 2}, "
               f"{report[name]['ms'] / floor_ms:.2f}x the floor", flush=True)
+    for (W7, c7), ms7 in k7_ms.items():
+        floor7 = 3 * c7 * (W7 - 1) * lat_us * 1e-3
+        print(f"scaled_doubles W={W7} c={c7}: longest lane {c7 * (W7 - 1)} doublings of 3 "
+              f"rounds; chain floor {floor7:.4f} ms; kernel {ms7:.4f} ms, {ms7 / floor7:.2f}x "
+              "the floor", flush=True)
     k13_steps = k13_chain(ctx.p, ctx.params.x_param)
     floor13 = k13_steps * lat_us * 1e-3
     print(f"g1_decompress lane: {k13_lane} multiplies, {k13_steps} of them dependent for a team "

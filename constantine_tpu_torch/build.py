@@ -209,7 +209,7 @@ KERNELS = {
         Kernel("bucket_reduce", "ec_kernels", "ctt_bucket_reduce", [P] + [P] * 9 + [I, I]),
         Kernel("scaled_doubles", "ec_kernels", "ctt_scaled_doubles", [P] + [P] * 6 + [I, I]),
         Kernel("chain_fwd", "field_kernels", "ctt_chain_fwd", [I, P, P, P, P, I, I]),
-        Kernel("fermat_inv", "field_kernels", "ctt_fermat_inv", [I, P, P, I, P, P, I]),
+        Kernel("fermat_inv", "field_kernels", "ctt_fermat_inv", [I, P, P, P, P, I]),
         Kernel("chain_bwd_inv", "field_kernels", "ctt_chain_bwd_inv",
                [I, P, P, P, P, P, I, I]),
         Kernel("g1_decompress", "g1_kernels", "ctt_g1_decompress", [P] * 5 + [I]),

@@ -8,7 +8,7 @@
 // them, the same group law in levels of independent products for a team of
 // threads over the two-chain multiply fe_mul_eo: the scalar-multiplication
 // ladder of ec_scalar_mul, the team add of ec_add, the team madd and lane
-// walk of flush_scan, and merge_scan's runs.
+// walk of flush_scan, merge_scan's runs and scaled_doubles' lanes.
 //
 // Layout: an element is N little-endian 32-bit limbs in Montgomery form with
 // R = 2^(32N) -- the reference's R, since its 16-bit digits pair into these
@@ -639,22 +639,23 @@ CTT_HD void mul_level(Team& tm, const Fe<N> (&a)[K], const Fe<N> (&b)[K], Fe<N> 
   }
 }
 
-// ec_double in 4 levels: X^2, Y^2, Y Z | B^2, (X + B)^2 | E^2 | E (D - X3).
+// ec_double in 3 levels: X^2, Y^2, Y Z | B^2, (X + B)^2, E^2 | E (D - X3).
+// E = 3A is known after level 1, so E^2 joins level 2; Y -> Y^2 -> (X + B)^2
+// -> E (D - X3) is a chain of three products, the fewest dbl-2009-l allows.
 template <int N, class Team>
 CTT_HD Jac<N> ec_double_team(Team& tm, const Jac<N>& P, const Mod<N>& M) {
-  Fe<N> l1[3], l2[2], l3[1], l4[1];
+  Fe<N> l1[3], l2[3], l3[1];
   mul_level<N, 3>(tm, {P.X, P.Y, P.Y}, {P.X, P.Y, P.Z}, l1, M);
   const Fe<N> A = l1[0], B = l1[1];
   const Fe<N> xb = fe_add<N>(P.X, B, M);
-  mul_level<N, 2>(tm, {B, xb}, {B, xb}, l2, M);
+  const Fe<N> E = fe_add<N>(fe_dbl<N>(A, M), A, M);
+  mul_level<N, 3>(tm, {B, xb, E}, {B, xb, E}, l2, M);
   const Fe<N> C = l2[0];
   const Fe<N> D = fe_dbl<N>(fe_sub<N>(fe_sub<N>(l2[1], A, M), C, M), M);
-  const Fe<N> E = fe_add<N>(fe_dbl<N>(A, M), A, M);
-  mul_level<N, 1>(tm, {E}, {E}, l3, M);
   Jac<N> R;
-  R.X = fe_sub<N>(l3[0], fe_dbl<N>(D, M), M);
-  mul_level<N, 1>(tm, {E}, {fe_sub<N>(D, R.X, M)}, l4, M);
-  R.Y = fe_sub<N>(l4[0], fe_dbl<N>(fe_dbl<N>(fe_dbl<N>(C, M), M), M), M);
+  R.X = fe_sub<N>(l2[2], fe_dbl<N>(D, M), M);
+  mul_level<N, 1>(tm, {E}, {fe_sub<N>(D, R.X, M)}, l3, M);
+  R.Y = fe_sub<N>(l3[0], fe_dbl<N>(fe_dbl<N>(fe_dbl<N>(C, M), M), M), M);
   R.Z = fe_dbl<N>(l1[2], M);
   return R;
 }
@@ -827,6 +828,23 @@ CTT_HD void store_split(const Team& tm, uint32_t* ox, uint32_t* oy, uint32_t* oz
     if ((N + l) % Team::T == tm.rank) oy[l * stride] = P.Y.v[l];
     if ((2 * N + l) % Team::T == tm.rank) oz[l * stride] = P.Z.v[l];
   }
+}
+
+// -- scaled_doubles' lane (K7) --------------------------------------------------
+//
+// Lane w of the planar (N, W) point columns x, y, z becomes 2^(c w) P_w:
+// c w doublings over ec_double_team, one after the other (each needs the
+// last), then the team's members split the store. Infinity (Z = 0) stays
+// infinity and Y = 0 becomes it, as in ec_double; lane 0 (and c = 0) is a
+// copy.
+template <int N, class Team>
+CTT_HD void scaled_doubles_lane(Team& tm, const uint32_t* x, const uint32_t* y,
+                                const uint32_t* z, uint32_t* ox, uint32_t* oy, uint32_t* oz,
+                                int W, int c, int w, const Mod<N>& M) {
+  const size_t sw = (size_t)W;
+  Jac<N> P{load_col<N>(x + w, sw), load_col<N>(y + w, sw), load_col<N>(z + w, sw)};
+  for (int s = 0; s < c * w; ++s) P = ec_double_team<N>(tm, P, M);
+  store_split<N>(tm, ox + w, oy + w, oz + w, sw, P);
 }
 
 // -- flush_scan's lane ---------------------------------------------------------

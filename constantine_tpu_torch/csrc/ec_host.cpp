@@ -7,8 +7,10 @@
 // Arrays are row-major (n, 12) u32 limbs in Montgomery form; mod_words is
 // p[12], m0, one[12] as in ec.cuh. The flush scan's entries take the
 // kernel's planar stream instead: keys (K, M), xy (K, 24, M), out (K, 12, M);
-// the merge scan's, keys (K, M) and q, out (K, 12, M) x 3.
+// the merge scan's, keys (K, M) and q, out (K, 12, M) x 3. The inverse
+// (inv.cuh) takes rows of 8 or 12 limbs.
 #include "ec.cuh"
+#include "inv.cuh"
 
 using namespace ctt;
 
@@ -211,4 +213,39 @@ extern "C" int ctt_host_store_split(const uint32_t* x, const uint32_t* y, const 
     case 8: store_members<8>(P, out); return 0;
     default: return -1;
   }
+}
+
+template <int N>
+int inv_rows(const uint32_t* mod_words, const uint32_t* r3, const uint32_t* x, uint32_t* out,
+             int n) {
+  const Mod<N> md = mod_from_words<N>(mod_words);
+  const InvConsts<N> C = inv_consts<N>(md, r3);
+  for (int i = 0; i < n; ++i) {
+    Fe<N> a;
+    for (int l = 0; l < N; ++l) a.v[l] = x[(size_t)i * N + l];
+    const Fe<N> r = fe_inv<N>(a, C, md);
+    for (int l = 0; l < N; ++l) out[(size_t)i * N + l] = r.v[l];
+  }
+  return C.batches;
+}
+
+// inv.cuh's fe_inv (K9's lane) over nl = 8 or 12 limbs: x and out row-major
+// (n, nl), r3 = R^3 mod p. Returns the batches of INV_BITS divsteps a lane
+// runs, or -1 for another nl.
+extern "C" int ctt_host_fe_inv(int nl, const uint32_t* mod_words, const uint32_t* r3,
+                               const uint32_t* x, uint32_t* out, int n) {
+  if (nl == 8) return inv_rows<8>(mod_words, r3, x, out, n);
+  if (nl == 12) return inv_rows<12>(mod_words, r3, x, out, n);
+  return -1;
+}
+
+// One batch of inv.cuh's divsteps on the low words f (odd) and g from eta =
+// -delta: writes the matrix (u, v, q, r) to t and returns the new eta.
+// Returns INV_BITS through *bits.
+extern "C" int ctt_host_divsteps(int eta, uint32_t f, uint32_t g, int* t, int* bits) {
+  Trans m;
+  const int e = divsteps(eta, f, g, m);
+  t[0] = m.u, t[1] = m.v, t[2] = m.q, t[3] = m.r;
+  *bits = INV_BITS;
+  return e;
 }

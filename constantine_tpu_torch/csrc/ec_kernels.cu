@@ -23,7 +23,7 @@
 // multiplies (~3,300 products) and an add 16 (~4,800) against 72-144 bytes
 // of input per step (chip_smoke.py `bound` counts the multiplies these
 // inputs need). One thread a lane runs them as one dependent chain, far
-// above that bound on the widths the paths use; four kernels shorten the
+// above that bound on the widths the paths use; five kernels shorten the
 // chain with a team of threads a lane or a run (ec.cuh: a level's
 // independent products side by side, over the two-chain multiply
 // fe_mul_eo).
@@ -65,6 +65,19 @@
 // in 5 rounds, so a launch takes 5 multiply latencies instead of 16. At the
 // paths' widths it stays latency-bound (0.009-0.015 ms a launch on the
 // H100), and a call's time is the wrapper's host cost (0.03-0.06 ms).
+//
+// K7 scaled_doubles replaces pallas_ec.py:931-1011, which runs (W-1)*c grid
+// steps over all W lanes and masks each step to the lanes that still owe a
+// doubling. Lane w owes c*w doublings, each on the last one's result, so
+// the longest lane's chain is the time: at the paths' (W, c) = (15, 9) and
+// (11, 12), 126 and 120 doublings on W <= 16 lanes, one block. One thread a
+// lane ran them over fe_mul, 7 dependent products a doubling (2.9 ms on the
+// H100). Here a team of SM_TEAM threads a lane runs ec_double_team, 3
+// levels of products over fe_mul_eo (3 rounds, the last one product that
+// every member computes), so the bound that matters is the longest lane's
+// 3*c*(W-1) dependent rounds, far above the multiplies' operations bound;
+// the team cuts the chain from 7 products a doubling to 3 (0.42-0.45 ms on
+// the H100, 1.27x those rounds at fe_mul_eo's latency).
 //
 // ec_scalar_mul walks every bit of [k]Q in one launch (the per-bit route
 // took two launches and three selects a bit). FK20 calls it on 64-128
@@ -138,26 +151,6 @@ __global__ void bucket_reduce_kernel(MD md, const uint32_t* bx, const uint32_t* 
   store(wz, C, c, wsum.Z);
 }
 
-// K7, the online MSM's window combine: lane w of (NL, W) becomes
-// 2^(c*w) * P_w. The TPU kernel runs (W-1)*c grid steps over all lanes and
-// masks each step to the lanes still owing a doubling (t < c*w); here each
-// thread runs its own lane's c*w doublings, which is the same result without
-// the masking. It is latency-bound: W <= 16 threads, one block, each a chain
-// of up to (W-1)*c dependent doublings (7 multiplies each), against an
-// operations bound set by the longest lane's share. Infinity (Z = 0) stays
-// infinity and Y = 0 becomes infinity, as ec_double does.
-__global__ void scaled_doubles_kernel(MD md, const uint32_t* x, const uint32_t* y,
-                                      const uint32_t* z, uint32_t* ox, uint32_t* oy,
-                                      uint32_t* oz, int W, int c) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;
-  J P{load(x, W, w), load(y, W, w), load(z, W, w)};
-  for (int s = 0; s < c * w; ++s) P = ec_double<NL>(P, md);
-  store(ox, W, w, P.X);
-  store(oy, W, w, P.Y);
-  store(oz, W, w, P.Z);
-}
-
 // ec_scalar_mul: [k]Q per lane, every bit in one launch (ec.cuh's
 // ec_scalar_mul). A team of SM_TEAM threads in one warp owns a lane; each
 // member holds the whole state, computes its share of a level's products
@@ -205,6 +198,22 @@ ec_add_kernel(MD md, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
   const unsigned mask = ((1u << SM_TEAM) - 1) << ((threadIdx.x & 31) - rank);
   SmTeam<NL, SM_TEAM> tm{slots + team * SM_WORDS, mask, rank};
   store_split<NL>(tm, x3 + i, y3 + i, z3 + i, n, ec_add_team<NL>(tm, P, Q, md));
+}
+
+// K7, the online MSM's window combine: lane w of (NL, W) becomes
+// 2^(c*w) * P_w (ec.cuh scaled_doubles_lane), a team of SM_TEAM threads a
+// lane, launched like ec_scalar_mul (16 lanes a block of 64 threads).
+__global__ void __launch_bounds__(SM_THREADS)
+scaled_doubles_kernel(MD md, const uint32_t* x, const uint32_t* y, const uint32_t* z,
+                      uint32_t* ox, uint32_t* oy, uint32_t* oz, int W, int c) {
+  const int team = threadIdx.x / SM_TEAM;
+  const int w = blockIdx.x * SM_LANES + team;
+  if (w >= W) return;  // a whole team
+  __shared__ uint32_t slots[SM_LANES * SM_WORDS];
+  const int rank = threadIdx.x % SM_TEAM;
+  const unsigned mask = ((1u << SM_TEAM) - 1) << ((threadIdx.x & 31) - rank);
+  SmTeam<NL, SM_TEAM> tm{slots + team * SM_WORDS, mask, rank};
+  scaled_doubles_lane<NL>(tm, x, y, z, ox, oy, oz, W, c, w, md);
 }
 
 // K4: keys (K, M); xy (K, 2*NL, M), rows 0..NL-1 the x limbs and NL..2NL-1
@@ -320,7 +329,8 @@ extern "C" int ctt_scaled_doubles(const uint32_t* mod_words, const void* x, cons
                                   const void* z, void* ox, void* oy, void* oz, int W,
                                   int c, void* stream) {
   if (W > 0)
-    scaled_doubles_kernel<<<blocks(W), THREADS, 0, (cudaStream_t)stream>>>(
+    scaled_doubles_kernel<<<(W + SM_LANES - 1) / SM_LANES, SM_THREADS, 0,
+                            (cudaStream_t)stream>>>(
         mod_from_words<NL>(mod_words), (const uint32_t*)x, (const uint32_t*)y,
         (const uint32_t*)z, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, W, c);
   return (int)cudaGetLastError();

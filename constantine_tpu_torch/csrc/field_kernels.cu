@@ -13,6 +13,7 @@
 #include <cuda_runtime.h>
 
 #include "ec.cuh"
+#include "inv.cuh"
 
 using namespace ctt;
 
@@ -65,8 +66,8 @@ extern "C" int ctt_mont_mul(int nl, const uint32_t* mod_words, const void* a,
 //   K8  chain_fwd      (ctt_chain_fwd)
 //   K9  fermat_inv     (ctt_fermat_inv)
 //   K10 chain_bwd_inv  (ctt_chain_bwd_inv)
-// which batch_inv_packed composes: products chained down C, one Fermat
-// inversion of each chain's total, then the unwind. The reference's packed
+// which batch_inv_packed composes: products chained down C, one inversion
+// of each chain's total, then the unwind. The reference's packed
 // layout (two 16-bit digits per u32) is this port's native 32-bit limb, so
 // the planar layouts carry over as they are: chains (C, N, Mw), lanes (N, Wd)
 // with the lane axis contiguous, and a warp's loads of one limb contiguous.
@@ -79,10 +80,19 @@ extern "C" int ctt_mont_mul(int nl, const uint32_t* mod_words, const void* a,
 // 2-3 elements moved (300-600 operations per 48-96 bytes), so they sit near
 // the balance of the two bounds and are latency-bound below a few hundred
 // thousand lanes; the design keeps the running product in registers and
-// reads each element once. K9 is a chain of dependent multiplies per lane
-// (square-and-multiply over the exponent's bits: 610 for Fp's p - 2, 419
-// for Fr's), run on 1 to 512 lanes, so it is latency-bound by design: its point is that one launch
-// replaces the hundreds of one-lane K1 launches of a host-driven power.
+// reads each element once.
+//
+// K9 runs on 1 to 512 lanes (at most 4 blocks), so it is one lane's latency
+// whatever its operations. The reference's square-and-multiply over p - 2 is
+// a chain of 610 dependent products for Fp (419 for Fr), ~0.96 ms on the
+// H100 over fe_mul. Here a lane inverts by Bernstein-Yang's safegcd (inv.cuh
+// fe_inv): a fixed number of batches of INV_BITS = 30 divsteps (37 for Fp,
+// 25 for Fr), each a branch-free loop on one word that yields a 2x2
+// matrix, then that matrix applied to f, g, d and e (L limbs each, products
+// of independent limbs), and one fe_mul at the end by R^3 mod p to return to
+// Montgomery form (~0.05 ms for Fp and ~0.03 for Fr on the H100). The result
+// is the unique inverse, so its limbs are the reference's; the time does not
+// depend on the input, and 0 gives 0.
 
 template <int N>
 __device__ __forceinline__ Fe<N> load_lane(const uint32_t* __restrict__ base, int stride,
@@ -134,27 +144,14 @@ __global__ void chain_bwd_inv_kernel(Mod<N> md, const uint32_t* __restrict__ pe,
   }
 }
 
-// The exponent (p - 2 for an inversion), passed by value.
+// x (N, n) -> x^-1 per lane, Montgomery form in and out (0 gives 0).
 template <int N>
-struct Exponent {
-  uint32_t e[N];
-  int nbits;
-};
-
-// x (N, n) -> x^e per lane, most significant bit first: square, then
-// multiply where the bit is set (the reference computes both and selects).
-template <int N>
-__global__ void fermat_inv_kernel(Mod<N> md, Exponent<N> ex, const uint32_t* __restrict__ x,
-                                  uint32_t* __restrict__ out, int n) {
+__global__ void fermat_inv_kernel(Mod<N> md, InvConsts<N> ic,
+                                  const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                                  int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Fe<N> base = load_lane<N>(x, n, i);
-  Fe<N> acc = fe_one<N>(md);
-  for (int b = ex.nbits - 1; b >= 0; --b) {
-    acc = fe_sq<N>(acc, md);
-    if ((ex.e[b >> 5] >> (b & 31)) & 1u) acc = fe_mul<N>(acc, base, md);
-  }
-  store_lane<N>(out, n, i, acc);
+  store_lane<N>(out, n, i, fe_inv<N>(load_lane<N>(x, n, i), ic, md));
 }
 
 constexpr int CHAIN_THREADS = 128;
@@ -178,13 +175,11 @@ static void launch_chain_bwd_inv(const uint32_t* mod_words, const void* pe, cons
 }
 
 template <int N>
-static void launch_fermat_inv(const uint32_t* mod_words, const uint32_t* exp_words,
-                              int nbits, const void* x, void* out, int n, cudaStream_t s) {
-  Exponent<N> ex;
-  for (int l = 0; l < N; ++l) ex.e[l] = exp_words[l];
-  ex.nbits = nbits;
+static void launch_fermat_inv(const uint32_t* mod_words, const uint32_t* r3_words, const void* x,
+                              void* out, int n, cudaStream_t s) {
+  const Mod<N> md = mod_from_words<N>(mod_words);
   fermat_inv_kernel<N><<<chain_blocks(n), CHAIN_THREADS, 0, s>>>(
-      mod_from_words<N>(mod_words), ex, (const uint32_t*)x, (uint32_t*)out, n);
+      md, inv_consts<N>(md, r3_words), (const uint32_t*)x, (uint32_t*)out, n);
 }
 
 extern "C" int ctt_chain_fwd(int nl, const uint32_t* mod_words, const void* d, void* pe,
@@ -222,17 +217,18 @@ extern "C" int ctt_chain_bwd_inv(int nl, const uint32_t* mod_words, const void* 
   return (int)cudaGetLastError();
 }
 
-extern "C" int ctt_fermat_inv(int nl, const uint32_t* mod_words, const uint32_t* exp_words,
-                              int nbits, const void* x, void* out, int n, void* stream) {
+// r3_words: R^3 mod p (N words), which brings the integer inverse of aR back
+// to Montgomery form.
+extern "C" int ctt_fermat_inv(int nl, const uint32_t* mod_words, const uint32_t* r3_words,
+                              const void* x, void* out, int n, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  if (nbits <= 0 || nbits > 32 * nl) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (nl) {
     case 8:
-      launch_fermat_inv<8>(mod_words, exp_words, nbits, x, out, n, s);
+      launch_fermat_inv<8>(mod_words, r3_words, x, out, n, s);
       break;
     case 12:
-      launch_fermat_inv<12>(mod_words, exp_words, nbits, x, out, n, s);
+      launch_fermat_inv<12>(mod_words, r3_words, x, out, n, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

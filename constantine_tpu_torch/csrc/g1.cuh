@@ -95,7 +95,7 @@ CTT_HD Fp fp_sqrt_exp_team(Team& tm, uint32_t* tab, const Fp& x, const G1Decompr
 
 // g1_decompress_lane's result for a team (ec.cuh's Solo, the card's SmTeam):
 // the root as above; y^2 and y's canonical form in one level; the ladder
-// over ec_double_team (4 levels) and, at the set bits of u^2, ec_madd_team
+// over ec_double_team (3 levels) and, at the set bits of u^2, ec_madd_team
 // (5 levels); the comparison's 5 products in 2 levels. tab: the team's
 // 15 * FPN words for the window table.
 template <class Team>

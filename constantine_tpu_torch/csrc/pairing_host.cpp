@@ -14,7 +14,9 @@
 // the first, which changes the result if two tasks of a round touch one slot.
 // K13's team lane runs with a team of one, or with a thread for each member
 // of a team of T, the members meeting at a barrier where the card's meet at
-// __syncwarp.
+// __syncwarp; so do ec.cuh's team doubling and K7's lane (scaled_doubles),
+// on (n, 12) rows and on K7's planar (12, W) columns, mod_words as in
+// ec_host.cpp.
 #include <condition_variable>
 #include <cstddef>
 #include <mutex>
@@ -120,31 +122,64 @@ struct ThreadTeam {
   void next() { par ^= 1; }
 };
 
+// member(tm) for a team of one, or for each of kT threads meeting at a
+// barrier.
+template <int kT, class Member>
+void play_team(Member&& member) {
+  if constexpr (kT == 1) {
+    Solo<FPN> tm;
+    member(tm);
+  } else {
+    std::vector<uint32_t> slots(2 * kT * FPN);
+    Barrier bar(kT);
+    std::vector<std::thread> threads;
+    for (int r = 0; r < kT; ++r)
+      threads.emplace_back([&, r] {
+        ThreadTeam<kT> tm{slots.data(), &bar, r};
+        member(tm);
+      });
+    for (auto& t : threads) t.join();
+  }
+}
+
 // K13's team lane on lanes [0, n): a team of one, or kT threads a lane.
 template <int kT>
 void g1_team_lanes(const G1DecompressConsts& C, const uint32_t* xm, const int32_t* sign,
                    uint32_t* y, int32_t* ok, int n) {
-  std::vector<uint32_t> tab(15 * FPN), slots(2 * kT * FPN);
-  for (int i = 0; i < n; ++i) {
-    auto member = [&](auto& tm) {
+  std::vector<uint32_t> tab(15 * FPN);
+  for (int i = 0; i < n; ++i)
+    play_team<kT>([&](auto& tm) {
       Fp yi;
       const bool good =
           g1_decompress_team(tm, tab.data(), fp_load(xm + (size_t)i * FPN), sign[i] != 0, yi, C);
       g1_store_team(tm, y + (size_t)i * FPN, ok + i, yi, good);
-    };
-    if constexpr (kT == 1) {
-      Solo<FPN> tm;
-      member(tm);
-    } else {
-      Barrier bar(kT);
-      std::vector<std::thread> threads;
-      for (int r = 0; r < kT; ++r)
-        threads.emplace_back([&, r] {
-          ThreadTeam<kT> tm{slots.data(), &bar, r};
-          member(tm);
-        });
-      for (auto& t : threads) t.join();
-    }
+    });
+}
+
+// ec_double_team on rows [0, n), each member storing its share.
+template <int kT>
+void double_team_rows(const MdP& M, const uint32_t* x, const uint32_t* y, const uint32_t* z,
+                      uint32_t* ox, uint32_t* oy, uint32_t* oz, int n) {
+  for (int i = 0; i < n; ++i) {
+    const size_t o = (size_t)i * FPN;
+    play_team<kT>([&](auto& tm) {
+      const Jac<FPN> R = ec_double_team<FPN>(tm, Jac<FPN>{fp_load(x + o), fp_load(y + o),
+                                                          fp_load(z + o)}, M);
+      store_split<FPN>(tm, ox + o, oy + o, oz + o, 1, R);
+    });
+  }
+}
+
+// K7's lanes (scaled_doubles_lane) one team after the other, in order or
+// reversed.
+template <int kT>
+void scaled_doubles_teams(const MdP& M, const uint32_t* x, const uint32_t* y, const uint32_t* z,
+                          uint32_t* ox, uint32_t* oy, uint32_t* oz, int W, int c, bool reverse) {
+  for (int t = 0; t < W; ++t) {
+    const int w = reverse ? W - 1 - t : t;
+    play_team<kT>([&](auto& tm) {
+      scaled_doubles_lane<FPN>(tm, x, y, z, ox, oy, oz, W, c, w, M);
+    });
   }
 }
 
@@ -225,6 +260,36 @@ extern "C" int ctt_host_g1_decompress_team(const void* consts, int T, const uint
     case 1: g1_team_lanes<1>(C, xm, sign, y, ok, n); return 0;
     case 2: g1_team_lanes<2>(C, xm, sign, y, ok, n); return 0;
     case 4: g1_team_lanes<4>(C, xm, sign, y, ok, n); return 0;
+    default: return -1;
+  }
+}
+
+// ec.cuh's ec_double_team with a team of T = 1, 2 or 4 (a thread a member):
+// rows (n, 12). Returns -1 for another T.
+extern "C" int ctt_host_ec_double_team(const uint32_t* mod_words, int T, const uint32_t* x,
+                                       const uint32_t* y, const uint32_t* z, uint32_t* ox,
+                                       uint32_t* oy, uint32_t* oz, int n) {
+  const MdP M = mod_from_words<FPN>(mod_words);
+  switch (T) {
+    case 1: double_team_rows<1>(M, x, y, z, ox, oy, oz, n); return 0;
+    case 2: double_team_rows<2>(M, x, y, z, ox, oy, oz, n); return 0;
+    case 4: double_team_rows<4>(M, x, y, z, ox, oy, oz, n); return 0;
+    default: return -1;
+  }
+}
+
+// K7 (ec.cuh scaled_doubles_lane): lane w of the planar (12, W) columns
+// becomes 2^(c w) P_w, a team of T = 1, 2 or 4 a lane, the lanes in order or
+// reversed. Returns -1 for another T.
+extern "C" int ctt_host_scaled_doubles_team(const uint32_t* mod_words, int T, int reverse,
+                                            const uint32_t* x, const uint32_t* y,
+                                            const uint32_t* z, uint32_t* ox, uint32_t* oy,
+                                            uint32_t* oz, int W, int c) {
+  const MdP M = mod_from_words<FPN>(mod_words);
+  switch (T) {
+    case 1: scaled_doubles_teams<1>(M, x, y, z, ox, oy, oz, W, c, reverse != 0); return 0;
+    case 2: scaled_doubles_teams<2>(M, x, y, z, ox, oy, oz, W, c, reverse != 0); return 0;
+    case 4: scaled_doubles_teams<4>(M, x, y, z, ox, oy, oz, W, c, reverse != 0); return 0;
     default: return -1;
   }
 }

@@ -106,11 +106,13 @@ class CudaAffine:
         self.F = F
         self.NL = F.NL
         self._mod = ctypes.c_void_p(F.mod_words.ctypes.data)
-        e = F.p_int - 2                                   # Fermat: x^(p-2)
+        e = F.p_int - 2                                   # the plain version: x^(p-2)
         self.exp_int = e
         self.exp_bits = e.bit_length()
-        self._exp_words = lb.int_to_limbs(e, F.NL)
-        self._exp = ctypes.c_void_p(self._exp_words.ctypes.data)
+        # the kernel's safegcd inverts the integer aR; a product by R^3 mod p
+        # gives a^-1 R
+        self._r3_words = lb.int_to_limbs(pow(2, 96 * F.NL, F.p_int), F.NL)
+        self._r3 = ctypes.c_void_p(self._r3_words.ctypes.data)
 
     def _check(self, v, what):
         if v.shape[-2] != self.NL:
@@ -149,12 +151,14 @@ class CudaAffine:
     # -- K9 ---------------------------------------------------------------------
 
     def fermat_inv(self, x):
-        """x (NL, Wd) -> x^(p-2) per lane (the inverse; 0 gives 0)."""
+        """x (NL, Wd) -> x^(p-2) per lane (the inverse; 0 gives 0). The
+        kernel computes it by safegcd (csrc/inv.cuh), the plain version by
+        the reference's square-and-multiply: the same limbs."""
         self._check(x, "fermat_inv")
         if not _on_cuda(x):
             return self._fermat_inv_plain(x)
         out = torch.empty_like(x)
-        build.KERNELS["fermat_inv"](x.device, self.NL, self._mod, self._exp, self.exp_bits,
+        build.KERNELS["fermat_inv"](x.device, self.NL, self._mod, self._r3,
                                     build.ptr(x), build.ptr(out), x.shape[1])
         return out
 
