@@ -9,8 +9,8 @@
    Fp and Fr, K9 also at 0, 1 and p - 1; K13 on G1 points with both signs,
    a non-square x, an on-curve point outside G1 and x = 0 lanes; K11 on the generators, a pair with
    P = -P', a pair with P and Q both negated, and a batch of one; K12 on
-   f = 1 and on Miller outputs; K3' ntt_bfly and ntt_twm with 0, 1, r - 1
-   lanes and w = 1).
+   f = 1 and on Miller outputs; K3' ntt_bfly, ntt_stages and ntt_twm with
+   0, 1, r - 1 lanes and w = 1).
 2. Twelve paths, each driven with every launch count set to 0 just before
    it and read just after; each must have launched every kernel it runs:
    a. fixed-base commit: loads the EIP-4844 trusted setup, builds the KZG
@@ -72,8 +72,12 @@
    K9 over Fp at 512, 16 and 1 lanes and over Fr at what compute_kzg_proof
    hands it (eval_at's 512 chained lanes, the quotient's one) and at 16,
    K13 at 2, 128 and 130 lanes, K11 at 2 and 256 pairs, K12 at 1 and 256
-   lanes, K3' at every stage of the 4096 iNTT and 8192 NTT (four-step),
-   the (64, 128) FK20 NTT and the (128, 64) cell iNTT; ec_scalar_mul at 64
+   lanes, K3' ntt_bfly at every stage of the 4096 iNTT and 8192 NTT
+   (four-step), the (64, 128) FK20 NTT and the (128, 64) cell iNTT, and at
+   the coset transforms' last stage, and ntt_stages at every pass the
+   PeerDAS paths run (recorded from the entry points), with the stage
+   launches a call of paths i-l; K6 at every (T, lanes) the MSM paths reach
+   (recorded from the entry points), with its chain floor; ec_scalar_mul at 64
    lanes x 255 bits with k = 0, 1, r - 1, r, r + 2 and a point at infinity,
    at 1/n's 128 lanes, a bank stage's 4,096 and the Hadamard product's
    8,192, and against the per-bit K3 composition at an EC-FFT stage's 64
@@ -84,8 +88,9 @@
    multiplies it must do on these inputs. Holds K4 also at the batch of 16
    (K = 1,472, M = 1,024; 16 dense blobs, and 16 zero blobs, whose lanes
    are one run each) and at the 2^16 MSM (K = 1,408), once each (the plain
-   version takes ~25 s there), and times it; K3 add's device time
-   (torch.profiler) beside its call time. Prints the pairing
+   version takes ~25 s there), and times it; K3 add's, K6's and
+   ntt_stages' device time (CUDA events around calls queued behind a
+   sleeping kernel) beside their call time. Prints the pairing
    kernels' programs (rounds, rounds with a product, the inverse's lone
    multiplies) and their chain floor, and K13's and K7's (3 rounds a
    doubling), from fe_mul_eo's latency in a lone thread measured here, and
@@ -147,6 +152,7 @@ REPLACES = {
     "miller_loop": (MILLER_SRC, "constantine_tpu/ops/pallas_pairing.py:633"),
     "final_exp": (FINAL_EXP_SRC, "constantine_tpu/ops/pallas_pairing.py:712"),
     "ntt_bfly": (NTT_SRC, "constantine_tpu/ops/ntt.py:168"),
+    "ntt_stages": (NTT_SRC, "constantine_tpu/ops/ntt.py:168"),
     "ntt_twm": (NTT_SRC, "constantine_tpu/ops/ntt.py:198"),
 }
 PIPELINE = ("mont_mul", "ec_add", "ec_double_k", "flush_scan", "merge_scan", "bucket_reduce")
@@ -162,7 +168,11 @@ PIPELINE = ("mont_mul", "ec_add", "ec_double_k", "flush_scan", "merge_scan", "bu
 # scalar multiplications (ec_scalar_mul, one launch each) and the EC-FFT
 # butterflies and tree (K3 add), and compresses through K9; the
 # cell verify decompresses with K13, runs the cell iNTT, two online MSMs and
-# the pairing; recovery adds the coset transforms and Fr inversions (K8-K10)
+# the pairing; recovery adds the coset transforms (whose last stage is
+# ntt_bfly's) and Fr inversions (K8-K10). K3' runs a transform's passes as
+# ntt_stages launches: 2 a four-step, 1 a batched radix-2, 1 and an ntt_bfly
+# a coset transform of 8,192, so the stage launches a call are at most
+STAGE_LAUNCHES = {"cells": 4, "cells and proofs": 5, "verify cells": 1, "recover": 13}
 PAIRING = ("mont_mul", "ec_add", "fermat_inv", "g1_decompress", "miller_loop", "final_exp")
 # an FK20 call (paths j and l): 16 scalar multiplications (the Hadamard
 # product, 7 + 1 of the inverse EC-FFT, 7 of the EC-FFT), 28 butterfly adds
@@ -186,11 +196,12 @@ PATH_KERNELS = {
     "verify": PAIRING,
     "verify blob": _union(PAIRING, CHAINS),
     "verify batch 64": _union(PIPELINE, ("scaled_doubles",), CHAINS, PAIRING),
-    "cells": ("mont_mul", "ntt_bfly", "ntt_twm"),
-    "cells and proofs": ("mont_mul", "ntt_bfly", "ntt_twm", "ec_add", "ec_scalar_mul",
+    "cells": ("mont_mul", "ntt_stages", "ntt_twm"),
+    "cells and proofs": ("mont_mul", "ntt_stages", "ntt_twm", "ec_add", "ec_scalar_mul",
                          "fermat_inv"),
-    "verify cells": _union(PIPELINE, ("scaled_doubles", "ntt_bfly"), PAIRING),
-    "recover": _union(("mont_mul", "ntt_bfly", "ntt_twm", "ec_add", "ec_scalar_mul"), CHAINS),
+    "verify cells": _union(PIPELINE, ("scaled_doubles", "ntt_stages"), PAIRING),
+    "recover": _union(("mont_mul", "ntt_stages", "ntt_bfly", "ntt_twm", "ec_add",
+                       "ec_scalar_mul"), CHAINS),
 }
 
 
@@ -231,20 +242,24 @@ def k13_chain(p: int, u: int, T: int = 4) -> int:
 
 
 def record_calls(obj, name, fn):
-    """The tensor arguments of every call of obj.<name> that fn makes,
-    cloned."""
+    """The arguments of every call of obj.<name> (a method, or a module's
+    function) that fn makes, tensors cloned."""
     seen = []
+    own = name in vars(obj)
     orig = getattr(obj, name)
 
-    def rec(*args):
-        seen.append(tuple(t.clone() for t in args))
-        return orig(*args)
+    def rec(*args, **kw):
+        seen.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+        return orig(*args, **kw)
 
     setattr(obj, name, rec)
     try:
         fn()
     finally:
-        delattr(obj, name)
+        if own:
+            setattr(obj, name, orig)
+        else:
+            delattr(obj, name)
     return seen
 
 
@@ -383,17 +398,16 @@ def host_ms(torch, fn, reps):
     return out
 
 
-def device_by_kernel(torch, names, fn, reps=1):
-    """Device time of `reps` calls of fn by kernel (torch.profiler): a span
-    is kernel k's when its name holds k + "_kernel", else "torch ops".
-    Returns ({name: (launches, us)}, wall us of the calls)."""
+def device_by_kernel(torch, names, fn):
+    """Device time of a call of fn by kernel (torch.profiler): a span is
+    kernel k's when its name holds k + "_kernel", else "torch ops".
+    Returns ({name: (launches, us)}, wall us of the call)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -421,11 +435,32 @@ def profile_call(torch, names, label, fn):
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}; {parts}", flush=True)
 
 
-def device_ms(torch, fn, kernel, reps):
-    """Device milliseconds of `kernel`'s launches per call of fn over `reps`
-    calls, or None when the profiler saw no device time for it."""
-    by_name, _ = device_by_kernel(torch, [kernel], fn, reps)
-    return by_name[kernel][1] / reps / 1e3 if kernel in by_name else None
+def device_ms(torch, fn, reps):
+    """Device milliseconds of a call of fn when `reps` calls run back to back
+    on the card: the calls are queued behind a sleeping kernel that outlasts
+    the host's enqueue of them, so the events around them time the device,
+    not the host (for a call of one launch: its kernel and the gap to the
+    next). None when the host could not enqueue them in time. The profiler
+    is not used here: over many calls it kept only some of the kernels
+    (PERF.md)."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 200_000 * reps
+    for _ in range(3):
+        e0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0 = time.perf_counter()
+        e0.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < e0.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    return None
 
 
 def enqueue_ms(torch, fn, reps):
@@ -489,7 +524,9 @@ def main():
         from constantine_tpu_torch.ops import msm_gpu
         from constantine_tpu_torch.ops.cuda_ec import ec_add, ec_double
         from constantine_tpu_torch.ops.cuda_field import mont_mul, mont_mul_plain
-        from constantine_tpu_torch.ops.cuda_ntt import ntt_bfly, ntt_bfly_plain, ntt_twm
+        from constantine_tpu_torch.ops import ntt as ntt_mod
+        from constantine_tpu_torch.ops.cuda_ntt import (ntt_bfly, ntt_bfly_plain, ntt_stages,
+                                                        ntt_stages_plain, ntt_twm)
         from constantine_tpu_torch.ops.msm import (_apply_glv, _glv_for_group,
                                                    _signed_digits, msm)
         from constantine_tpu_torch.ops.ntt import bit_reversal_perm, get_domain
@@ -681,12 +718,20 @@ def main():
         twq[0] = fr.encode(1, dev)
         same((ntt_bfly(fr, xq, twq, h),), (ntt_bfly_plain(fr, xq, twq, h),),
              f"ntt_bfly quick h={h}")
+    tw16 = get_domain("BLS12_381", 4).packed_twiddles(False, dev)
+    brp16 = torch.as_tensor(bit_reversal_perm(16), device=dev)
+    xq4 = torch.cat([xq, xq[:, :, :1]], 2).contiguous()             # (2, 16, 4)
+    for xs, stages in ((xq, 4), (xq, 2), (xq4, 4)):
+        same((ntt_stages(fr, xs, tw16, brp16, stages),),
+             (ntt_stages_plain(fr, xs, tw16, brp16, stages),),
+             f"ntt_stages quick {tuple(xs.shape[:3])} stages={stages}")
     xt = xq.reshape(-1, fr.NL).contiguous()
     same((ntt_twm(fr, xt, xt.flip(0).contiguous()),),
          (mont_mul_plain(xt, xt.flip(0), fr),), "ntt_twm quick")
     print("quick checks: mont_mul (Fp, Fr), ec_add, ec_double_k, flush_scan, merge_scan, "
           "bucket_reduce, scaled_doubles, chain_fwd, fermat_inv, chain_bwd_inv (Fp, Fr), "
-          "g1_decompress, miller_loop, final_exp, ntt_bfly, ntt_twm exact", flush=True)
+          "g1_decompress, miller_loop, final_exp, ntt_bfly, ntt_stages, ntt_twm exact",
+          flush=True)
 
     # ---- 2. the paths ---------------------------------------------------------------
     golden = json.loads(GOLDEN.read_text())
@@ -1015,6 +1060,12 @@ def main():
     for name in ("cells and proofs", "recover"):
         got = {k: per_call[name][k] for k in FK20_LAUNCHES}
         check(got == FK20_LAUNCHES, f"{name}: launches per call {got}, not {FK20_LAUNCHES}")
+    stage_calls = {name: per_call[name]["ntt_stages"] + per_call[name]["ntt_bfly"]
+                   for name in STAGE_LAUNCHES}
+    print(f"K3' stage launches (ntt_stages + ntt_bfly) per call: {json.dumps(stage_calls)}",
+          flush=True)
+    check(all(stage_calls[k] <= v for k, v in STAGE_LAUNCHES.items()),
+          f"K3' stage launches per call {stage_calls}, above {STAGE_LAUNCHES}")
     total = {k: sum(c[k] for c in path_counts.values()) for k in build.KERNELS}
     check(all(v > 0 for v in total.values()), f"a kernel never launched: {total}")
 
@@ -1154,23 +1205,31 @@ def main():
             v[1, :, 1] = v[0, :, 1]
         by[1, :, 1] = F.neg(by[1, :, 1][None])[0]
         bz[2, :, 2] = 0
-        # adds with both operands finite (an add with infinity is a select):
-        # step t adds run into wsum, then bucket t into run
-        fin = ~F.is_zero(bz.transpose(1, 2))                           # (T, W*C)
+        k6_check(bx, by, bz, T, f"{tag} (degenerate lanes 0-2)", keep)
+        return (bx, by, bz), T
+
+    def k6_check(bx, by, bz, T, tag, keep):
+        """K6 against its plain version, timed beside its bound: the adds with
+        both operands finite (an add with infinity is a select; step t adds
+        run into wsum, then bucket t into run)."""
+        fin = ~F.is_zero(bz.transpose(1, 2))                           # (T, lanes)
         no = torch.zeros_like(fin[:1])
         run_fin = torch.cat([no, fin.cumsum(0)[:-1] > 0])               # run before step t
         wsum_fin = torch.cat([no, run_fin.cumsum(0)[:-1] > 0])
         n_adds = ((run_fin & fin).sum() + (wsum_fin & run_fin).sum()).item()
-        record("bucket_reduce", sum(pec.bucket_reduce(bx, by, bz, T), ()),
-               sum(pec._bucket_reduce_plain(bx, by, bz, T), ()),
-               lambda: pec.bucket_reduce(bx, by, bz, T),
-               lambda: pec._bucket_reduce_plain(bx, by, bz, T),
-               W * C * (3 * T + 6) * FE_BYTES, MULS["add"] * n_adds, reps=20,
-               label=f"bucket_reduce {tag} T={T} lanes={W * C}", keep=keep)
-        return (bx, by, bz), T
+        lanes = bx.shape[2]
+        k6_in[T, lanes] = bx, by, bz
+        k6_ms[T, lanes] = record(
+            "bucket_reduce", sum(pec.bucket_reduce(bx, by, bz, T), ()),
+            sum(pec._bucket_reduce_plain(bx, by, bz, T), ()),
+            lambda: pec.bucket_reduce(bx, by, bz, T),
+            lambda: pec._bucket_reduce_plain(bx, by, bz, T),
+            lanes * (3 * T + 6) * FE_BYTES, MULS["add"] * n_adds, reps=20,
+            label=f"bucket_reduce {tag} T={T} lanes={lanes}", keep=keep)
 
     # the fixed-base commit's stream (its numbers go into the kernels' line),
     # then the online commit's: the GLV split of the setup points, c = 9, W = 15
+    k6_ms, k6_in = {}, {}
     (bx, by, bz), T = scan_checks(fs, tabx.shape[0], kzg._pm.c, 1, "commit", True)
     glv_pts, glv_k, glv_bits = _apply_glv(g, _glv_for_group(g.name), kzo.s.g1_lagrange_brp,
                                           lb.to_tensor(poly, dev))
@@ -1254,6 +1313,32 @@ def main():
                   f"{bms5:.6f} ms ({by5}); longest run {longest} (key > 0), {adds} adds with "
                   f"products, at most {lane_max} a lane and {run_max} a run", flush=True)
 
+    # K6 at every (T, lanes) the MSM paths reach, recorded from the entry
+    # points (the commit and proving: T = 4 over 512 lanes; the online
+    # commit: 4 over 960; the 2^16 MSM: 8 over 2,816; the batch of 16: 16
+    # over 2,048; the two batch verifies' online MSMs), with lane 0 B1 = B0,
+    # lane 1 B1 = -B0 and lane 2 B2 at infinity
+    k6_calls = (
+        ("commit", lambda: eip4844.blob_to_kzg_commitment(blobs["dense1"], kzg)),
+        ("online commit", lambda: eip4844.blob_to_kzg_commitment(blobs["dense1"], kzo)),
+        ("batch 16", lambda: eip4844.blob_to_kzg_commitment_batch(batch, kzg)),
+        ("msm 2^16", lambda: msm(g, bases, k16)),
+        ("prove", lambda: eip4844.compute_kzg_proof(blobs["dense1"], zs["off"], kzg)),
+        ("verify batch 64", lambda: eip4844.verify_blob_kzg_proof_batch(bblobs, bcs, bps, kzg)),
+        ("verify cells", lambda: peerdas.verify_cell_kzg_proof_batch(*all1, das)))
+    for label, fn in k6_calls:
+        recorded = record_calls(pec, "bucket_reduce", fn)
+        check(recorded, f"{label}: no bucket_reduce call recorded")
+        for b6x, b6y, b6z, T6 in recorded:
+            if (T6, b6x.shape[2]) in k6_ms:
+                continue
+            for v in (b6x, b6y, b6z):
+                v[1, :, 0] = v[0, :, 0]
+                v[1, :, 1] = v[0, :, 1]
+            b6y[1, :, 1] = F.neg(b6y[1, :, 1][None])[0]
+            b6z[2, :, 2] = 0
+            k6_check(b6x, b6y, b6z, T6, f"{label} (degenerate lanes 0-2)", False)
+
     # K3 add at the tail's width (C = 512 chunk lanes), with P == Q, P == -Q,
     # infinity on either side, and P == Q under another Z
     run, _ = pec.bucket_reduce(bx, by, bz, T)
@@ -1281,11 +1366,12 @@ def main():
           "ec_add degenerate lanes")
 
     def add_times(label, Pn, Qn, call_ms):
-        dms = device_ms(torch, lambda: pec.add(Pn, Qn), "ec_add", 50)
+        dms = device_ms(torch, lambda: pec.add(Pn, Qn), 50)
         hms = enqueue_ms(torch, lambda: pec.add(Pn, Qn), 200)
         print(f"ec_add {label}: call {call_ms:.4f} ms (CUDA events over back-to-back calls), "
               f"device {'not measured' if dms is None else f'{dms:.4f} ms'} a launch "
-              f"(torch.profiler), host {hms:.4f} ms to return a call", flush=True)
+              f"(CUDA events, queued behind a sleep), host {hms:.4f} ms to return a call",
+              flush=True)
 
     add_times(f"{C} lanes (the tail)", Pp, Qp, report["ec_add"]["ms"])
 
@@ -1441,36 +1527,44 @@ def main():
         print(f"scaled_doubles W={W7} c={c7}: longest lane {c7 * (W7 - 1)} doublings of 3 "
               f"rounds; chain floor {floor7:.4f} ms; kernel {ms7:.4f} ms, {ms7 / floor7:.2f}x "
               "the floor", flush=True)
+    for (T6, lanes6), ms6 in k6_ms.items():
+        floor6 = 5 * (T6 - 1) * lat_us * 1e-3
+        dms = device_ms(torch, lambda: pec.bucket_reduce(*k6_in[T6, lanes6], T6), 20)
+        print(f"bucket_reduce T={T6} lanes={lanes6}: T - 1 steps with an add of 5 rounds; chain "
+              f"floor {floor6:.4f} ms; kernel {ms6:.4f} ms a call (CUDA events), "
+              f"{ms6 / floor6:.2f}x the floor; device "
+              + ("not measured" if dms is None else
+                 f"{dms:.4f} ms a launch (CUDA events, queued behind a sleep), "
+                 f"{dms / floor6:.2f}x the floor"),
+              flush=True)
     k13_steps = k13_chain(ctx.p, ctx.params.x_param)
     floor13 = k13_steps * lat_us * 1e-3
     print(f"g1_decompress lane: {k13_lane} multiplies, {k13_steps} of them dependent for a team "
           f"of 4; chain floor {floor13:.4f} ms, bound {report['g1_decompress']['bound_ms']:.6f} "
           f"ms; kernel {report['g1_decompress']['ms']:.4f} ms at the verify's 2 lanes, "
           f"{report['g1_decompress']['ms'] / floor13:.2f}x the floor", flush=True)
-    # K3' at every stage of the paths' transforms, each stage's input the
-    # transform's own: the blob's 4096 iNTT and its 8192 extension NTT (the
-    # four-step's column and row stages), the FK20 NTT over (64, 128) and the
-    # verify's cell iNTT over (128, 64) (radix-2); ntt_twm on both twiddle
-    # matrices. Kept in the kernels' line: the 8192 NTT's last column stage
-    # (1, 64, 128), h = 32, and its twiddle matrix.
+    # K3' ntt_bfly at every stage of the paths' transforms, each stage's
+    # input the transform's own: the blob's 4096 iNTT and its 8192 extension
+    # NTT (the four-step's column and row stages), the FK20 NTT over (64,
+    # 128) and the verify's cell iNTT over (128, 64) (radix-2); ntt_twm on
+    # both twiddle matrices. Kept in the kernels' line: the 8192 NTT's twiddle
+    # matrix; ntt_bfly's and ntt_stages' rows come from the passes below.
     fr = ctx.fr
 
-    def check_stages(label, y, tws, brp, keep_h=None):
+    def check_stages(label, y, tws, brp):
         y = y.index_select(1, brp)
         for st, tw in enumerate(tws):
             h = 1 << st
             got = ntt_bfly(fr, y, tw, h)
-            if h == keep_h:
-                yk = y
-                nbytes, nmuls = 2 * yk.numel() * 4 + h * 4 * fr.NL, yk.numel() // (2 * fr.NL)
-                record("ntt_bfly", (got,), (ntt_bfly_plain(fr, yk, tw, h),),
-                       lambda: ntt_bfly(fr, yk, tw, h), lambda: ntt_bfly_plain(fr, yk, tw, h),
-                       nbytes, nmuls, reps=50, label=f"ntt_bfly {label} h={h}",
-                       mul_ops=FR_MUL_OPS, keep=label.startswith("8192"))
-            else:
-                same((got,), (ntt_bfly_plain(fr, y, tw, h),), f"ntt_bfly {label} h={h}")
+            same((got,), (ntt_bfly_plain(fr, y, tw, h),), f"ntt_bfly {label} h={h}")
             y = got
         return y
+
+    def stage_work(y, stages):
+        """Bytes (y in, out, the twiddles) and multiplies of `stages` stages
+        over y."""
+        return (2 * y.numel() * 4 + ((1 << stages) - 1) * 4 * fr.NL,
+                stages * y.numel() // (2 * fr.NL))
 
     dom12, dom13 = get_domain("BLS12_381", 12), get_domain("BLS12_381", 13)
     coeffs = das._blob_to_coeffs(blobs["dense1"])
@@ -1483,8 +1577,7 @@ def main():
         tws = dom.twiddles(inverse, dev)
         y = check_stages(f"{label} columns (1, {n1}, {n2})", x.reshape(1, n1, n2, fr.NL),
                          tws[:n1.bit_length() - 1], torch.as_tensor(bit_reversal_perm(n1),
-                                                                     device=dev),
-                         keep_h=n1 // 2)
+                                                                     device=dev))
         yt = y.reshape(-1, fr.NL)
         record("ntt_twm", (ntt_twm(fr, yt, twm),), (mont_mul_plain(yt, twm, fr),),
                lambda: ntt_twm(fr, yt, twm), lambda: mont_mul_plain(yt, twm, fr),
@@ -1503,7 +1596,44 @@ def main():
     for label, dom, x, inverse in (("FK20 NTT (64, 128, 1)", das.dom_cds, circ, False),
                                    ("cell iNTT (128, 64, 1)", das.dom_cell, cell_evals, True)):
         check_stages(label, x.reshape(x.shape[0], dom.n, 1, fr.NL), dom.twiddles(inverse, dev),
-                     torch.as_tensor(bit_reversal_perm(dom.n), device=dev), keep_h=dom.n // 2)
+                     torch.as_tensor(bit_reversal_perm(dom.n), device=dev))
+    print("check ntt_bfly at every stage of the four-step, FK20 and cell transforms: exact",
+          flush=True)
+
+    # K3' ntt_stages at every pass the PeerDAS paths run and ntt_bfly at the
+    # coset transforms' last stage (h = 4,096 over (1, 8192, 1)), recorded
+    # from the entry points; kept in the kernels' line: the 8192 NTT's column
+    # pass (1, 64, 128) and the coset stage
+    pass_calls = (
+        ("cells", lambda: peerdas.compute_cells(blobs["dense1"], das_cells)),
+        ("cells and proofs", lambda: peerdas.compute_cells_and_kzg_proofs(blobs["dense1"], das)),
+        ("verify cells", lambda: peerdas.verify_cell_kzg_proof_batch(*all1, das)),
+        ("recover", lambda: peerdas.recover_cells_and_kzg_proofs(
+            half_idx, [cells[1][i] for i in half_idx], das)))
+    passes, bflys = {}, {}
+    for label, fn in pass_calls:
+        for F_, y, tw, brp_, stages in record_calls(ntt_mod, "ntt_stages", fn):
+            passes.setdefault((*y.shape[:3], stages), (label, y, tw, brp_))
+        for F_, y, tw, h in record_calls(ntt_mod, "ntt_bfly", fn):
+            bflys.setdefault((*y.shape[:3], h), (label, y, tw))
+    for (B, ns, lanes, stages), (label, y, tw, brp_) in passes.items():
+        record("ntt_stages", (ntt_stages(fr, y, tw, brp_, stages),),
+               (ntt_stages_plain(fr, y, tw, brp_, stages),),
+               lambda: ntt_stages(fr, y, tw, brp_, stages),
+               lambda: ntt_stages_plain(fr, y, tw, brp_, stages), *stage_work(y, stages),
+               reps=50, label=f"ntt_stages {label} ({B}, {ns}, {lanes}), {stages} stages",
+               mul_ops=FR_MUL_OPS, keep=(B, ns, lanes) == (1, 64, 128))
+    check(bflys, "recover: no ntt_bfly call recorded")
+    for (B, ns, lanes, h), (label, y, tw) in bflys.items():
+        record("ntt_bfly", (ntt_bfly(fr, y, tw, h),), (ntt_bfly_plain(fr, y, tw, h),),
+               lambda: ntt_bfly(fr, y, tw, h), lambda: ntt_bfly_plain(fr, y, tw, h),
+               2 * y.numel() * 4 + h * 4 * fr.NL, y.numel() // (2 * fr.NL), reps=50,
+               label=f"ntt_bfly {label} ({B}, {ns}, {lanes}) h={h}", mul_ops=FR_MUL_OPS)
+    for (B, ns, lanes, stages), (label, y, tw, brp_) in passes.items():
+        dms = device_ms(torch, lambda: ntt_stages(fr, y, tw, brp_, stages), 20)
+        print(f"ntt_stages ({B}, {ns}, {lanes}), {stages} stages: device "
+              f"{'not measured' if dms is None else f'{dms:.4f} ms'} a launch (CUDA events, "
+              "queued behind a sleep)", flush=True)
 
     # ec_scalar_mul over 255 bits, inputs from this run's FK20: at 64 lanes
     # (an EC-FFT stage's width) against the plain ladder, on bank points with

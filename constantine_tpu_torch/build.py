@@ -216,6 +216,7 @@ KERNELS = {
         Kernel("miller_loop", "miller_loop", "ctt_miller_loop", [P] * 6 + [I]),
         Kernel("final_exp", "final_exp", "ctt_final_exp", [P] * 3 + [I]),
         Kernel("ntt_bfly", "ntt_kernels", "ctt_ntt_bfly", [I, P, P, P, P, I, I, I, I]),
+        Kernel("ntt_stages", "ntt_kernels", "ctt_ntt_stages", [I, P, P, P, P, P, I, I, I, I, I]),
         Kernel("ntt_twm", "ntt_kernels", "ctt_ntt_twm", [I, P, P, P, P, I]),
     )
 }

@@ -8,7 +8,8 @@
 // them, the same group law in levels of independent products for a team of
 // threads over the two-chain multiply fe_mul_eo: the scalar-multiplication
 // ladder of ec_scalar_mul, the team add of ec_add, the team madd and lane
-// walk of flush_scan, merge_scan's runs and scaled_doubles' lanes.
+// walk of flush_scan, merge_scan's runs, bucket_reduce's lanes and
+// scaled_doubles' lanes.
 //
 // Layout: an element is N little-endian 32-bit limbs in Montgomery form with
 // R = 2^(32N) -- the reference's R, since its 16-bit digits pair into these
@@ -879,6 +880,58 @@ CTT_HD void flush_lane(Team& tm, const int32_t* keys, const uint32_t* xy, uint32
     X2 = nX;
     Y2 = nY;
   }
+}
+
+// -- bucket_reduce's lane (K6) ---------------------------------------------------
+//
+// ec_add's result where it needs no product: Q at infinity gives P, P at
+// infinity gives Q (ec_add's selects, in its order); else ec_add_team.
+template <int N, class Team>
+CTT_HD Jac<N> ec_add_sel_team(Team& tm, const Jac<N>& P, const Jac<N>& Q, const Mod<N>& M) {
+  if (fe_is_zero<N>(Q.Z)) return P;
+  if (fe_is_zero<N>(P.Z)) return Q;
+  return ec_add_team<N>(tm, P, Q, M);
+}
+
+// The buckets are planar, B (T, N, nl) x 3; lane c's run = sum_t B[t] and
+// wsum = sum_t (T-1-t) B[t] go to r and w (N, nl) x 3. The reference's loop
+// from infinity: at step t, wsum <- wsum + run, then run <- run + B[t]. The
+// step's two adds read only the old run, so two teams of a lane run them side
+// by side: role 0 carries wsum, role 1 run (loading the next bucket a step
+// ahead). After every step but the last, role 1's members hand the new run to
+// role 0 through `hand` (two sets of 3N words, by the step's parity: one
+// barrier of both teams a step, pair_sync(), publishes the run and keeps the
+// next write behind the last read). Both roles call the add at one place, so
+// a warp's teams add together; an add with an operand at infinity is a select
+// (the first step's two, and empty buckets'), a branch that depends only on
+// which values are infinity, the same for a team's members; the doubling (P
+// == Q, both finite) stays inside ec_add_team. Every product is canonical, so
+// run and wsum keep the loop's Jacobian limbs.
+template <int N, class Team, class Sync>
+CTT_HD void bucket_lane(Team& tm, int role, uint32_t* hand, Sync&& pair_sync, const uint32_t* bx,
+                        const uint32_t* by, const uint32_t* bz, uint32_t* rx, uint32_t* ry,
+                        uint32_t* rz, uint32_t* wx, uint32_t* wy, uint32_t* wz, int T, int nl,
+                        int c, const Mod<N>& M) {
+  const size_t snl = (size_t)nl;
+  auto bucket = [&](int t) {
+    const size_t o = (size_t)t * N * snl + c;
+    return Jac<N>{load_col<N>(bx + o, snl), load_col<N>(by + o, snl), load_col<N>(bz + o, snl)};
+  };
+  Jac<N> acc = jac_infinity<N>(M);
+  Jac<N> Q = role ? bucket(0) : acc;
+  for (int t = 0;; ++t) {
+    const Jac<N> Qn = role && t + 1 < T ? bucket(t + 1) : Q;
+    acc = ec_add_sel_team<N>(tm, acc, Q, M);
+    if (t + 1 >= T) break;
+    uint32_t* h = hand + (t & 1) * 3 * N;
+    if (role) store_split<N>(tm, h, h + N, h + 2 * N, 1, acc);
+    pair_sync();
+    Q = role ? Qn : Jac<N>{load_col<N>(h, 1), load_col<N>(h + N, 1), load_col<N>(h + 2 * N, 1)};
+  }
+  if (role)
+    store_split<N>(tm, rx + c, ry + c, rz + c, snl, acc);
+  else
+    store_split<N>(tm, wx + c, wy + c, wz + c, snl, acc);
 }
 
 // -- merge_scan's runs ----------------------------------------------------------

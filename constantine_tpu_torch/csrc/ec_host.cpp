@@ -2,14 +2,19 @@
 // behind a plain C interface, so it can be held against the port's plain
 // PyTorch versions on a machine without nvcc or a card.
 //
-//   g++ -O2 -std=c++17 -shared -fPIC -o libec_host.so ec_host.cpp
+//   g++ -O2 -std=c++17 -shared -fPIC -pthread -o libec_host.so ec_host.cpp
 //
 // Arrays are row-major (n, 12) u32 limbs in Montgomery form; mod_words is
 // p[12], m0, one[12] as in ec.cuh. The flush scan's entries take the
 // kernel's planar stream instead: keys (K, M), xy (K, 24, M), out (K, 12, M);
-// the merge scan's, keys (K, M) and q, out (K, 12, M) x 3. The inverse
-// (inv.cuh) takes rows of 8 or 12 limbs.
+// the merge scan's, keys (K, M) and q, out (K, 12, M) x 3; bucket_reduce's,
+// buckets (T, 12, C) and run, wsum (12, C) x 3. The inverse (inv.cuh) takes
+// rows of 8 or 12 limbs. bucket_reduce's lanes run a thread for each member
+// of their two teams (host_team.h): build with -pthread.
+#include <vector>
+
 #include "ec.cuh"
+#include "host_team.h"
 #include "inv.cuh"
 
 using namespace ctt;
@@ -181,6 +186,47 @@ extern "C" void ctt_host_merge_scan_runs(const uint32_t* mod_words, const int32_
     Solo<NL> tm;
     merge_runs<NL>(tm, keys, qx, qy, qz, ex, ey, ez, K, M, m, k0, k0 + Lc < K ? k0 + Lc : K,
                    md);
+  }
+}
+
+// K6's lanes (ec.cuh bucket_lane) one after the other, in the kernel's lane
+// order or reversed: each lane's two teams of kT, a thread a member, each
+// team meeting at its own barrier and the pair at a barrier of 2 kT where
+// the card's meet at __syncwarp.
+template <int kT>
+void bucket_lanes(const Mod<NL>& md, const uint32_t* bx, const uint32_t* by, const uint32_t* bz,
+                  uint32_t* rx, uint32_t* ry, uint32_t* rz, uint32_t* wx, uint32_t* wy,
+                  uint32_t* wz, int T, int C, bool reverse) {
+  for (int i = 0; i < C; ++i) {
+    const int c = reverse ? C - 1 - i : i;
+    std::vector<uint32_t> slots(2 * 2 * kT * NL), hand(6 * NL);
+    Barrier team0(kT), team1(kT), both(2 * kT);
+    std::vector<std::thread> threads;
+    for (int role = 0; role < 2; ++role)
+      for (int r = 0; r < kT; ++r)
+        threads.emplace_back([&, role, r] {
+          ThreadTeam<NL, kT> tm{slots.data() + role * 2 * kT * NL, role ? &team1 : &team0, r};
+          bucket_lane<NL>(tm, role, hand.data(), [&] { both.wait(); }, bx, by, bz, rx, ry, rz,
+                          wx, wy, wz, T, C, c, md);
+        });
+    for (auto& t : threads) t.join();
+  }
+}
+
+// K6 (ec.cuh bucket_lane) with two teams of T = 1, 2 or 4 a lane, the lanes
+// in order or reversed: buckets (T, 12, C) planar, outputs (12, C). Returns
+// -1 for another team size.
+extern "C" int ctt_host_bucket_reduce_teams(const uint32_t* mod_words, int team, int reverse,
+                                            const uint32_t* bx, const uint32_t* by,
+                                            const uint32_t* bz, uint32_t* rx, uint32_t* ry,
+                                            uint32_t* rz, uint32_t* wx, uint32_t* wy,
+                                            uint32_t* wz, int T, int C) {
+  const Mod<NL> md = mod_from_words<NL>(mod_words);
+  switch (team) {
+    case 1: bucket_lanes<1>(md, bx, by, bz, rx, ry, rz, wx, wy, wz, T, C, reverse); return 0;
+    case 2: bucket_lanes<2>(md, bx, by, bz, rx, ry, rz, wx, wy, wz, T, C, reverse); return 0;
+    case 4: bucket_lanes<4>(md, bx, by, bz, rx, ry, rz, wx, wy, wz, T, C, reverse); return 0;
+    default: return -1;
   }
 }
 

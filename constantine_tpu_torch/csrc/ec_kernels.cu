@@ -23,7 +23,7 @@
 // multiplies (~3,300 products) and an add 16 (~4,800) against 72-144 bytes
 // of input per step (chip_smoke.py `bound` counts the multiplies these
 // inputs need). One thread a lane runs them as one dependent chain, far
-// above that bound on the widths the paths use; five kernels shorten the
+// above that bound on the widths the paths use; six kernels shorten the
 // chain with a team of threads a lane or a run (ec.cuh: a level's
 // independent products side by side, over the two-chain multiply
 // fe_mul_eo).
@@ -59,6 +59,18 @@
 // the keys and on which partial sums are infinity, uniform across a team
 // (the reference is branch-free). A launch takes the longest run's chain
 // of team adds (~7 us each), plus its wrapper's host cost.
+//
+// K6 bucket_reduce replaces pallas_ec.py:853-925, which walks T bucket
+// steps on the grid with wsum += run; run += B[t] for all C lanes at each.
+// Lane c's adds are a chain (T = 4-16 on the paths, over 512-2,816 lanes);
+// one thread a lane ran its 2T ec_adds over fe_mul, 16 dependent products
+// each (0.32 ms on the H100). But a step's two adds read only the old run,
+// and an add with an operand at infinity (the first step's, an empty
+// bucket's) is a select. Here two teams of SM_TEAM threads a lane run the
+// step's two ec_add_teams side by side (ec.cuh bucket_lane), 5 rounds of
+// products a step, the run handed from one team to the other through shared
+// memory; the chain is the lane's T - 1 steps with an add, far above the
+// multiplies' operations bound (chip_smoke.py `bound`).
 //
 // K3 add (ctt_ec_add) replaces PallasEC._elemwise's add (pallas_ec.py:
 // 525-560): a team of SM_TEAM threads a lane runs ec_add_team, 16 products
@@ -127,30 +139,6 @@ __global__ void ec_double_k_kernel(MD md, const uint32_t* x, const uint32_t* y,
   store(oz, n, i, P.Z);
 }
 
-// Per lane c: run = sum_t B[t, c], wsum = sum_t (T-1-t) * B[t, c], by the
-// running-suffix trick (wsum absorbs run before run absorbs the bucket).
-__global__ void bucket_reduce_kernel(MD md, const uint32_t* bx, const uint32_t* by,
-                                     const uint32_t* bz, uint32_t* rx, uint32_t* ry,
-                                     uint32_t* rz, uint32_t* wx, uint32_t* wy,
-                                     uint32_t* wz, int T, int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  J run = jac_infinity<NL>(md);
-  J wsum = run;
-  for (int t = 0; t < T; ++t) {
-    const size_t off = (size_t)t * NL * C;
-    const J B{load(bx + off, C, c), load(by + off, C, c), load(bz + off, C, c)};
-    wsum = ec_add<NL>(wsum, run, md);
-    run = ec_add<NL>(run, B, md);
-  }
-  store(rx, C, c, run.X);
-  store(ry, C, c, run.Y);
-  store(rz, C, c, run.Z);
-  store(wx, C, c, wsum.X);
-  store(wy, C, c, wsum.Y);
-  store(wz, C, c, wsum.Z);
-}
-
 // ec_scalar_mul: [k]Q per lane, every bit in one launch (ec.cuh's
 // ec_scalar_mul). A team of SM_TEAM threads in one warp owns a lane; each
 // member holds the whole state, computes its share of a level's products
@@ -214,6 +202,34 @@ scaled_doubles_kernel(MD md, const uint32_t* x, const uint32_t* y, const uint32_
   const unsigned mask = ((1u << SM_TEAM) - 1) << ((threadIdx.x & 31) - rank);
   SmTeam<NL, SM_TEAM> tm{slots + team * SM_WORDS, mask, rank};
   scaled_doubles_lane<NL>(tm, x, y, z, ox, oy, oz, W, c, w, md);
+}
+
+// K6: buckets (T, NL, C) x 3 -> run, wsum (NL, C) x 3. Two teams of SM_TEAM
+// threads a lane (ec.cuh bucket_lane), in one warp: role 0 carries wsum, role
+// 1 run, each with its own product slots, and the pair meets at a __syncwarp
+// over its 2 SM_TEAM threads to hand over the run.
+constexpr int BR_PAIR = 2 * SM_TEAM;       // threads a lane
+constexpr int BR_THREADS = 64;
+constexpr int BR_LANES = BR_THREADS / BR_PAIR;
+constexpr int BR_WORDS = 2 * SM_WORDS + 6 * NL;   // two teams' slots, two handed runs
+static_assert(32 % BR_PAIR == 0, "a lane's teams lie within one warp");
+
+__global__ void __launch_bounds__(BR_THREADS)
+bucket_reduce_kernel(MD md, const uint32_t* __restrict__ bx, const uint32_t* __restrict__ by,
+                     const uint32_t* __restrict__ bz, uint32_t* rx, uint32_t* ry, uint32_t* rz,
+                     uint32_t* wx, uint32_t* wy, uint32_t* wz, int T, int C) {
+  const int pair = threadIdx.x / BR_PAIR;
+  const int c = blockIdx.x * BR_LANES + pair;
+  if (c >= C) return;  // a whole lane: BR_PAIR divides the warp
+  __shared__ uint32_t sm[BR_LANES * BR_WORDS];
+  uint32_t* base = sm + pair * BR_WORDS;
+  const int within = threadIdx.x % BR_PAIR;
+  const int role = within / SM_TEAM, rank = within % SM_TEAM;
+  const unsigned mask = ((1u << SM_TEAM) - 1) << ((threadIdx.x & 31) - rank);
+  const unsigned both = ((1u << BR_PAIR) - 1) << ((threadIdx.x & 31) - within);
+  SmTeam<NL, SM_TEAM> tm{base + role * SM_WORDS, mask, rank};
+  bucket_lane<NL>(tm, role, base + 2 * SM_WORDS, [both] { __syncwarp(both); }, bx, by, bz, rx,
+                  ry, rz, wx, wy, wz, T, C, c, md);
 }
 
 // K4: keys (K, M); xy (K, 2*NL, M), rows 0..NL-1 the x limbs and NL..2NL-1
@@ -317,8 +333,8 @@ extern "C" int ctt_bucket_reduce(const uint32_t* mod_words, const void* bx,
                                  const void* by, const void* bz, void* rx, void* ry,
                                  void* rz, void* wx, void* wy, void* wz, int T, int C,
                                  void* stream) {
-  if (C > 0)
-    bucket_reduce_kernel<<<blocks(C), THREADS, 0, (cudaStream_t)stream>>>(
+  if (C > 0 && T > 0)
+    bucket_reduce_kernel<<<(C + BR_LANES - 1) / BR_LANES, BR_THREADS, 0, (cudaStream_t)stream>>>(
         mod_from_words<NL>(mod_words), (const uint32_t*)bx, (const uint32_t*)by,
         (const uint32_t*)bz, (uint32_t*)rx, (uint32_t*)ry, (uint32_t*)rz,
         (uint32_t*)wx, (uint32_t*)wy, (uint32_t*)wz, T, C);

@@ -1,6 +1,7 @@
 // K3': the NTT butterfly and the four-step twiddle product, one element of
-// work each, shared by the CUDA kernels (ntt_kernels.cu) and the host build
-// the tests use (ntt_host.cpp).
+// work each, and a pass of stages over a tile in shared memory, shared by the
+// CUDA kernels (ntt_kernels.cu) and the host build the tests use
+// (ntt_host.cpp).
 //
 // Replaces constantine_tpu/ops/pallas_ec.py:_elemwise as instantiated at
 // constantine_tpu/ops/ntt.py:168 (ntt_bfly: s = a + b*w, d = a - b*w) and
@@ -63,6 +64,107 @@ template <int N>
 CTT_HD void ntt_twm_at(const Mod<N>& M, const uint32_t* x, const uint32_t* t,
                        uint32_t* out, int i) {
   ntt_store<N>(out, i, fe_mul<N>(ntt_load<N>(x, i), ntt_load<N>(t, i), M));
+}
+
+// -- ntt_stages: a pass of stages in one block's shared memory ---------------
+//
+// The pass bit-reverses axis ns of x (batch, ns, lanes, N) and runs stages
+// 0 .. stages - 1 of the DIT on it. Those stages pair elements only within
+// runs of S = 2^stages rows along ns, so a block takes a tile of S rows (rows
+// j S .. j S + S - 1 of the reversed array) by G lanes (l0 .. l0 + G - 1) of
+// one batch row b: it loads the tile, gathering row i from x's row brp[j S +
+// i], runs the stages on it and stores it to out's rows j S .. j S + S - 1.
+// Stage u's butterfly q (of S/2 x G) is ntt_bfly_at's with h = 2^u on the
+// tile: lane g = q mod G, t = q / G, k = t mod h, rows i0 = (t - k) 2 + k and
+// i0 + h, twiddle k of stage u's table, which sits at row 2^u - 1 of tw (the
+// stage tables packed: 1, 2, 4, ... rows). So every butterfly is the per-stage
+// kernel's operation on the same operands, and the limbs do not change.
+//
+// Element (i, g) of the tile is at tile + (i G + g)(N + 1): the odd stride
+// puts the words that neighbouring threads read in different banks. A phase
+// is the load, a stage, or the store; its work item w goes to thread w mod
+// nthr, and the block's threads meet at a barrier between phases.
+struct NttTile {
+  int ns, lanes, S, G;  // the array's rows and lanes, the tile's rows and lanes
+  int b, j, l0;         // the tile's batch row, run of rows and first lane
+};
+
+// Threads a block of a pass: one a butterfly of a stage, whole warps, at
+// most NTT_STAGE_THREADS (more butterflies loop).
+constexpr int NTT_STAGE_THREADS = 512;
+
+CTT_HD int ntt_stage_threads(int S, int G) {
+  const int half = S / 2 * G;
+  return half >= NTT_STAGE_THREADS ? NTT_STAGE_THREADS : half <= 32 ? 32 : (half + 31) / 32 * 32;
+}
+
+// The tile of block `blk` of batch * (ns / S) * (lanes / G).
+CTT_HD NttTile ntt_tile_at(int blk, int ns, int lanes, int S, int G) {
+  const int groups = lanes / G, runs = ns / S;
+  const int q = blk / groups;
+  return NttTile{ns, lanes, S, G, q / runs, q % runs, (blk % groups) * G};
+}
+
+template <int N>
+CTT_HD void ntt_tile_load(const NttTile& t, const uint32_t* x, const int64_t* brp,
+                          uint32_t* tile, int tid, int nthr) {
+  const int row = t.G * N;
+  for (int w = tid; w < t.S * row; w += nthr) {
+    const int i = w / row, c = w - i * row;
+    const size_t src = (((size_t)t.b * t.ns + (size_t)brp[t.j * t.S + i]) * t.lanes + t.l0) * N;
+    tile[(i * t.G + c / N) * (N + 1) + c % N] = x[src + c];
+  }
+}
+
+template <int N>
+CTT_HD void ntt_tile_stage(const NttTile& t, const Mod<N>& M, const uint32_t* tw,
+                           uint32_t* tile, int u, int tid, int nthr) {
+  const int h = 1 << u, nb = (t.S >> 1) * t.G;
+  const uint32_t* twu = tw + (size_t)(h - 1) * N;
+  for (int q = tid; q < nb; q += nthr) {
+    const int g = q % t.G, s = q / t.G;
+    const int k = s & (h - 1);
+    uint32_t* e0 = tile + (((s - k) * 2 + k) * t.G + g) * (N + 1);
+    uint32_t* e1 = e0 + h * t.G * (N + 1);
+    Fe<N> a, b;
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      a.v[l] = e0[l];
+      b.v[l] = e1[l];
+    }
+    const Fe<N> bw = fe_mul<N>(b, ntt_load<N>(twu, k), M);
+    const Fe<N> s0 = fe_add<N>(a, bw, M), s1 = fe_sub<N>(a, bw, M);
+#pragma unroll
+    for (int l = 0; l < N; ++l) {
+      e0[l] = s0.v[l];
+      e1[l] = s1.v[l];
+    }
+  }
+}
+
+template <int N>
+CTT_HD void ntt_tile_store(const NttTile& t, const uint32_t* tile, uint32_t* out, int tid,
+                           int nthr) {
+  const int row = t.G * N;
+  for (int w = tid; w < t.S * row; w += nthr) {
+    const int i = w / row, c = w - i * row;
+    const size_t dst = (((size_t)t.b * t.ns + (size_t)t.j * t.S + i) * t.lanes + t.l0) * N;
+    out[dst + c] = tile[(i * t.G + c / N) * (N + 1) + c % N];
+  }
+}
+
+// Phase p of a pass of `stages` stages: 0 the load, 1 .. stages the stages,
+// stages + 1 the store.
+template <int N>
+CTT_HD void ntt_tile_phase(const NttTile& t, const Mod<N>& M, const uint32_t* x,
+                           uint32_t* out, const uint32_t* tw, const int64_t* brp,
+                           uint32_t* tile, int stages, int p, int tid, int nthr) {
+  if (p == 0)
+    ntt_tile_load<N>(t, x, brp, tile, tid, nthr);
+  else if (p <= stages)
+    ntt_tile_stage<N>(t, M, tw, tile, p - 1, tid, nthr);
+  else
+    ntt_tile_store<N>(t, tile, out, tid, nthr);
 }
 
 }  // namespace ctt

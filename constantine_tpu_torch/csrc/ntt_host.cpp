@@ -7,6 +7,8 @@
 //
 // Arrays are row-major u32 limbs in Montgomery form over 8-limb Fr;
 // mod_words is p[8], m0, one[8] as in ec.cuh.
+#include <vector>
+
 #include "ntt.cuh"
 
 using namespace ctt;
@@ -23,4 +25,28 @@ extern "C" void ctt_host_ntt_twm(const uint32_t* mod_words, const uint32_t* x,
                                  const uint32_t* t, uint32_t* out, int n) {
   const Mod<8> md = mod_from_words<8>(mod_words);
   for (int i = 0; i < n; ++i) ntt_twm_at<8>(md, x, t, out, i);
+}
+
+// A pass of ntt_stages (ntt.cuh ntt_tile_phase): every block of the launch,
+// one after the other, with a tile filled with `fill`; in each phase, the
+// block's nthr threads (ntt_stage_threads' count if nthr <= 0) one after the
+// other, in order or reversed, the barrier between phases. brp holds ns
+// int64 row indices; out must not be x.
+extern "C" void ctt_host_ntt_stages(const uint32_t* mod_words, const uint32_t* x, uint32_t* out,
+                                    const uint32_t* tw, const int64_t* brp, int batch, int ns,
+                                    int lanes, int stages, int cols, int nthr, int reverse,
+                                    uint32_t fill) {
+  const Mod<8> md = mod_from_words<8>(mod_words);
+  const int S = 1 << stages;
+  if (nthr <= 0) nthr = ntt_stage_threads(S, cols);
+  const int nblocks = batch * (ns / S) * (lanes / cols);
+  std::vector<uint32_t> tile((size_t)S * cols * (8 + 1));
+  for (int blk = 0; blk < nblocks; ++blk) {
+    const NttTile t = ntt_tile_at(blk, ns, lanes, S, cols);
+    tile.assign(tile.size(), fill);
+    for (int p = 0; p <= stages + 1; ++p)
+      for (int i = 0; i < nthr; ++i)
+        ntt_tile_phase<8>(t, md, x, out, tw, brp, tile.data(), stages, p,
+                          reverse ? nthr - 1 - i : i, nthr);
+  }
 }

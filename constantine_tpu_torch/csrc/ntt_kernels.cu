@@ -1,22 +1,30 @@
 // K3': the NTT stage kernels over Fr (8 limbs), templated on the limb count.
 //
 // Replace constantine_tpu/ops/pallas_ec.py:_elemwise as the NTT uses it:
-//   ntt_bfly  constantine_tpu/ops/ntt.py:168  (ctt_ntt_bfly)
+//   ntt_bfly  constantine_tpu/ops/ntt.py:168  (ctt_ntt_stages, ctt_ntt_bfly)
 //   ntt_twm   constantine_tpu/ops/ntt.py:198  (ctt_ntt_twm)
 // The TPU kernels take planar (16, n) digit planes padded to 512 lanes, with
 // the stage's operands a, b and the twiddle plane cut out and put back by
-// XLA slices and a concatenate around every call. Here one launch does a
-// whole stage in the natural (batch, ns, lanes, 8) layout, in place, with
-// the index arithmetic of ntt.cuh; the twiddle is read from the stage's
-// (h, 8) table, not from a plane repeated over the lanes.
+// XLA slices and a concatenate around every call, one call a stage. Here
+// the natural (batch, ns, lanes, 8) layout stays as it is, with the index
+// arithmetic of ntt.cuh; the twiddle is read from the stage's (h, 8) table,
+// not from a plane repeated over the lanes.
 //
 // Bound on an H100: a butterfly is one 8-limb Montgomery multiply (~136
 // 32x32->64 products) and an add and a sub against 96 bytes read and 64
-// written, so a stage sits near the balance of the two bounds; at PeerDAS's
-// sizes (4,096 butterflies a stage) it is one wave of 16 blocks and the
-// launch itself is most of the time. One thread per butterfly keeps the
-// operands in registers; each thread reads 32 contiguous bytes per element
-// and neighbouring threads neighbouring elements (lanes = 1) or lanes.
+// written, so a stage sits near the balance of the two bounds. But at
+// PeerDAS's sizes (4,096-8,192 elements a transform) a stage is one wave of
+// 16-32 blocks, and one launch a stage made the launch and its ctypes call
+// most of the time (0.021-0.038 ms a call against 0.0044 on the device).
+// ctt_ntt_stages runs a whole pass instead: the bit reversal folded into the
+// load, then every stage of the pass over a tile in shared memory, S = 2^stages
+// rows by G lanes (lanes contiguous, 32 bytes an element: a warp reads runs of
+// 32 G bytes; G = 2 was the fastest on the H100, cuda_ntt.py TILE_COLS),
+// __syncthreads() between stages, and one store.
+// The paths' transforms (ns = 64 and 128 over 1-128 lanes) are one launch a
+// pass; ns = 8,192 over one lane, the coset transforms, takes 12 stages in
+// tiles of 4,096 rows (147 KB of shared memory) and its last stage from
+// ctt_ntt_bfly, one thread a butterfly over the whole array.
 #include <cuda_runtime.h>
 
 #include "ntt.cuh"
@@ -43,6 +51,22 @@ __global__ void ntt_twm_kernel(Mod<N> md, const uint32_t* __restrict__ x,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   ntt_twm_at<N>(md, x, t, out, i);
+}
+
+// A pass: block blk's tile (ntt.cuh ntt_tile_at), its phases between barriers.
+constexpr int STAGE_SMEM = 232448;  // the most shared memory a block takes on an H100
+
+template <int N>
+__global__ void __launch_bounds__(NTT_STAGE_THREADS)
+ntt_stages_kernel(Mod<N> md, const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                  const uint32_t* __restrict__ tw, const int64_t* __restrict__ brp, int ns,
+                  int lanes, int stages, int G) {
+  extern __shared__ uint32_t tile[];
+  const NttTile t = ntt_tile_at(blockIdx.x, ns, lanes, 1 << stages, G);
+  for (int p = 0; p <= stages + 1; ++p) {
+    if (p) __syncthreads();
+    ntt_tile_phase<N>(t, md, x, out, tw, brp, tile, stages, p, threadIdx.x, blockDim.x);
+  }
 }
 
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
@@ -82,6 +106,39 @@ extern "C" int ctt_ntt_twm(int nl, const uint32_t* mod_words, const void* x, con
       ntt_twm_kernel<8><<<blocks(n), THREADS, 0, s>>>(
           mod_from_words<8>(mod_words), (const uint32_t*)x, (const uint32_t*)t,
           (uint32_t*)out, n);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// A pass: bit-reverse axis ns of x (batch, ns, lanes, nl) by brp (ns int64
+// row indices), then DIT stages 0 .. stages - 1 (half-blocks 1 .. 2^(stages-1),
+// stage u's twiddles at rows 2^u - 1 of tw), over tiles of 2^stages rows by
+// cols lanes, into out (not x).
+extern "C" int ctt_ntt_stages(int nl, const uint32_t* mod_words, const void* x, void* out,
+                              const void* tw, const void* brp, int batch, int ns, int lanes,
+                              int stages, int cols, void* stream) {
+  if (batch <= 0 || lanes <= 0) return (int)cudaGetLastError();
+  if (ns < 2 || (ns & (ns - 1)) || stages < 1 || stages > 30 || (1 << stages) > ns ||
+      cols < 1 || lanes % cols)
+    return (int)cudaErrorInvalidValue;
+  const int S = 1 << stages;
+  const size_t smem = (size_t)S * cols * (nl + 1) * sizeof(uint32_t);
+  const long nblocks = (long)batch * (ns / S) * (lanes / cols);
+  if (smem > STAGE_SMEM || (long)batch * ns * lanes * nl >= (1L << 31))
+    return (int)cudaErrorInvalidValue;
+  const int threads = ntt_stage_threads(S, cols);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (nl) {
+    case 8:
+      if (smem > 48 * 1024)
+        cudaFuncSetAttribute(ntt_stages_kernel<8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+      ntt_stages_kernel<8><<<(unsigned)nblocks, threads, smem, s>>>(
+          mod_from_words<8>(mod_words), (const uint32_t*)x, (uint32_t*)out,
+          (const uint32_t*)tw, (const int64_t*)brp, ns, lanes, stages, cols);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -17,13 +17,11 @@
 // __syncwarp; so do ec.cuh's team doubling and K7's lane (scaled_doubles),
 // on (n, 12) rows and on K7's planar (12, W) columns, mod_words as in
 // ec_host.cpp.
-#include <condition_variable>
 #include <cstddef>
-#include <mutex>
-#include <thread>
 #include <vector>
 
 #include "g1.cuh"
+#include "host_team.h"
 #include "pairing.cuh"
 
 using namespace ctt;
@@ -81,74 +79,13 @@ void miller(const PairingConsts& C, int T, bool reverse, const uint32_t* xp, con
   }
 }
 
-// A barrier for n threads, reusable.
-class Barrier {
- public:
-  explicit Barrier(int n) : n_(n) {}
-  void wait() {
-    std::unique_lock<std::mutex> lock(m_);
-    const unsigned gen = gen_;
-    if (++count_ == n_) {
-      count_ = 0;
-      ++gen_;
-      cv_.notify_all();
-    } else {
-      cv_.wait(lock, [&] { return gen_ != gen; });
-    }
-  }
-
- private:
-  std::mutex m_;
-  std::condition_variable cv_;
-  int n_, count_ = 0;
-  unsigned gen_ = 0;
-};
-
-// ec.cuh's SmTeam with host threads: the same two sets of T product slots,
-// alternating between rounds, and one barrier a round.
-template <int kT>
-struct ThreadTeam {
-  static constexpr int T = kT;
-  uint32_t* slots;
-  Barrier* bar;
-  int rank;
-  int par = 0;
-  void sync() const { bar->wait(); }
-  void put(const Fp& p) {
-    fp_store(slots + (par * T + rank) * FPN, p);
-    sync();
-  }
-  Fp get(int j) const { return fp_load(slots + (par * T + j) * FPN); }
-  void next() { par ^= 1; }
-};
-
-// member(tm) for a team of one, or for each of kT threads meeting at a
-// barrier.
-template <int kT, class Member>
-void play_team(Member&& member) {
-  if constexpr (kT == 1) {
-    Solo<FPN> tm;
-    member(tm);
-  } else {
-    std::vector<uint32_t> slots(2 * kT * FPN);
-    Barrier bar(kT);
-    std::vector<std::thread> threads;
-    for (int r = 0; r < kT; ++r)
-      threads.emplace_back([&, r] {
-        ThreadTeam<kT> tm{slots.data(), &bar, r};
-        member(tm);
-      });
-    for (auto& t : threads) t.join();
-  }
-}
-
 // K13's team lane on lanes [0, n): a team of one, or kT threads a lane.
 template <int kT>
 void g1_team_lanes(const G1DecompressConsts& C, const uint32_t* xm, const int32_t* sign,
                    uint32_t* y, int32_t* ok, int n) {
   std::vector<uint32_t> tab(15 * FPN);
   for (int i = 0; i < n; ++i)
-    play_team<kT>([&](auto& tm) {
+    play_team<FPN, kT>([&](auto& tm) {
       Fp yi;
       const bool good =
           g1_decompress_team(tm, tab.data(), fp_load(xm + (size_t)i * FPN), sign[i] != 0, yi, C);
@@ -162,7 +99,7 @@ void double_team_rows(const MdP& M, const uint32_t* x, const uint32_t* y, const 
                       uint32_t* ox, uint32_t* oy, uint32_t* oz, int n) {
   for (int i = 0; i < n; ++i) {
     const size_t o = (size_t)i * FPN;
-    play_team<kT>([&](auto& tm) {
+    play_team<FPN, kT>([&](auto& tm) {
       const Jac<FPN> R = ec_double_team<FPN>(tm, Jac<FPN>{fp_load(x + o), fp_load(y + o),
                                                           fp_load(z + o)}, M);
       store_split<FPN>(tm, ox + o, oy + o, oz + o, 1, R);
@@ -177,7 +114,7 @@ void scaled_doubles_teams(const MdP& M, const uint32_t* x, const uint32_t* y, co
                           uint32_t* ox, uint32_t* oy, uint32_t* oz, int W, int c, bool reverse) {
   for (int t = 0; t < W; ++t) {
     const int w = reverse ? W - 1 - t : t;
-    play_team<kT>([&](auto& tm) {
+    play_team<FPN, kT>([&](auto& tm) {
       scaled_doubles_lane<FPN>(tm, x, y, z, ox, oy, oz, W, c, w, M);
     });
   }

@@ -293,15 +293,18 @@ class CudaEC:
     # -- K6: weighted bucket reduction -------------------------------------------
 
     def bucket_reduce(self, bx, by, bz, T: int):
-        """Inputs (T, NL, C) bucket sums. Per lane c: run = sum_t B[t, c] and
-        wsum = sum_t (T-1-t) B[t, c]. Returns ((run), (wsum)), each (NL, C) x 3."""
+        """Inputs (T, NL, C) bucket sums, T >= 1. Per lane c: run = sum_t
+        B[t, c] and wsum = sum_t (T-1-t) B[t, c], by the reference's loop
+        (wsum += run, then run += B[t]). Returns ((run), (wsum)), each (NL, C)
+        x 3. The kernel runs a step's two adds side by side, two teams of
+        threads a lane (``csrc/ec.cuh`` ``bucket_lane``)."""
         Tn, NL, C = bx.shape
-        if Tn != T or NL != self.NL or by.shape != bx.shape or bz.shape != bx.shape:
+        if (Tn != T or T < 1 or NL != self.NL or by.shape != bx.shape
+                or bz.shape != bx.shape):
             raise ValueError(f"bucket_reduce: {tuple(bx.shape)} with T={T}")
         if not _on_cuda(bx, by, bz):
             return self._bucket_reduce_plain(bx, by, bz, T)
-        out = tuple(torch.empty((NL, C), dtype=torch.int32, device=bx.device)
-                    for _ in range(6))
+        out = torch.empty((6, NL, C), dtype=torch.int32, device=bx.device).unbind(0)
         build.KERNELS["bucket_reduce"](bx.device, self._mod,
                                        *map(build.ptr, (bx, by, bz, *out)), T, C)
         return out[:3], out[3:]

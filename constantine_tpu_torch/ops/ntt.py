@@ -11,16 +11,18 @@ test and the ``CTT_NTT_PALLAS`` switch): a 2-D input with n >= 1024 takes
 the Bailey four-step (column transforms of size n1 along the middle axis,
 the twiddle matrix, one transpose, row transforms of size n2); anything
 else, batched inputs and the coset transforms included, the radix-2 DIT.
-Every stage of both is one K3′ ``ntt_bfly`` call and the twiddle matrix
-one ``ntt_twm`` call (``cuda_ntt.py``: the kernels on CUDA tensors, their
-plain versions on CPU tensors); the bit reversal is one gather and the
-1/n scaling one K1 multiply.
+Each pass of both (the bit reversal and its stages) is one K3′
+``ntt_stages`` call where its tile fits a block's shared memory, the
+stages left over one ``ntt_bfly`` call each, and the twiddle matrix one
+``ntt_twm`` call (``cuda_ntt.py``: the kernels on CUDA tensors, their plain
+versions on CPU tensors); the 1/n scaling is one K1 multiply.
 
 Tables are built here from python ints in the port's (m, NL) 32-bit
-Montgomery form. The four-step's column and row stages reuse the radix-2
-stage tables: stage s of a size-n1 transform with root w^n2 has twiddles
-(w^n2)^((n1/2^(s+1)) k) = w^((n/2^(s+1)) k), stage s's table of the size-n
-transform (likewise for the rows).
+Montgomery form, the stage tables packed into one (n - 1, NL) table (stage
+s at rows 2^s - 1 .. 2^(s+1) - 2). The four-step's column and row stages
+reuse the radix-2 stage tables: stage s of a size-n1 transform with root
+w^n2 has twiddles (w^n2)^((n1/2^(s+1)) k) = w^((n/2^(s+1)) k), stage s's
+table of the size-n transform (likewise for the rows).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from . import limbs as lb
-from .cuda_ntt import ntt_bfly, ntt_twm
+from .cuda_ntt import ntt_bfly, ntt_stages, ntt_twm, pass_stages
 
 
 def bit_reversal_perm(n: int) -> np.ndarray:
@@ -68,11 +70,10 @@ class NTTDomain:
         w_pows = _powers(omega, n // 2, p)
         wi_pows = _powers(pow(omega, -1, p), n // 2, p)
         enc = functools.partial(self._encode_host, F)
-        # stage s (m = 2^(s+1)) twiddles: omega^((n/m) k), k < m/2
-        self._tw = {False: [enc([w_pows[(n >> (s + 1)) * k] for k in range(1 << s)])
-                            for s in range(log_n)],
-                    True: [enc([wi_pows[(n >> (s + 1)) * k] for k in range(1 << s)])
-                           for s in range(log_n)]}
+        # stage s (m = 2^(s+1)) twiddles: omega^((n/m) k), k < m/2, packed
+        self._tw = {inv: enc([pows[(n >> (s + 1)) * k] for s in range(log_n)
+                              for k in range(1 << s)]).reshape(-1, F.NL)
+                    for inv, pows in ((False, w_pows), (True, wi_pows))}
         self.brp = bit_reversal_perm(n)
         self._n_inv = enc([pow(n, -1, p)])[0]
         self.domain_int = _powers(omega, n, p)
@@ -93,10 +94,15 @@ class NTTDomain:
             slot[key] = make(device)
         return slot[key]
 
+    def packed_twiddles(self, inverse: bool, device):
+        """The stage tables packed, (n - 1, NL) on `device`: stage s's 2^s
+        twiddles at rows 2^s - 1 .. 2^(s+1) - 2."""
+        return self._on(device, ("tw", inverse), lambda d: lb.to_tensor(self._tw[inverse], d))
+
     def twiddles(self, inverse: bool, device):
-        """The per-stage tables [(2^s, NL)] on `device`."""
-        return self._on(device, ("tw", inverse),
-                        lambda d: [lb.to_tensor(t, d) for t in self._tw[inverse]])
+        """The per-stage tables [(2^s, NL)], views of the packed table."""
+        tw = self.packed_twiddles(inverse, device)
+        return [tw[(1 << s) - 1:(2 << s) - 1] for s in range(self.log_n)]
 
     def _brp_index(self, n: int, device):
         return self._on(device, ("brp", n),
@@ -107,12 +113,18 @@ class NTTDomain:
 
     # -- radix-2 DIT --------------------------------------------------------------
 
-    def _stages(self, y, tws, brp):
-        """Bit-reverse axis 1 of y (B, ns, lanes, NL), then one K3′ stage per
-        table, in place on the gathered copy."""
-        y = y.index_select(1, brp)
-        for s, tw in enumerate(tws):
-            y = ntt_bfly(self.F, y, tw, 1 << s, out=y)
+    def _stages(self, y, tw, brp):
+        """Bit-reverse axis 1 of y (B, ns, lanes, NL), then its log2(ns)
+        radix-2 stages (tw: the packed tables, the first ns - 1 rows read):
+        one K3′ ntt_stages pass over the stages whose tile fits a block, then
+        one ntt_bfly per stage left, in place on the pass's output."""
+        ns, L = y.shape[1], y.shape[1].bit_length() - 1
+        if L == 0:
+            return y.index_select(1, brp)
+        k = pass_stages(ns, y.shape[2], self.F.NL)
+        y = ntt_stages(self.F, y, tw, brp, k)
+        for s in range(k, L):
+            y = ntt_bfly(self.F, y, tw[(1 << s) - 1:(2 << s) - 1], 1 << s, out=y)
         return y
 
     def _scale(self, y, inverse):
@@ -124,7 +136,7 @@ class NTTDomain:
             raise ValueError(f"NTT of size {self.n} over {tuple(x.shape)}")
         dev = x.device
         y = x.reshape(-1, self.n, 1, self.F.NL)
-        y = self._stages(y, self.twiddles(inverse, dev), self._brp_index(self.n, dev))
+        y = self._stages(y, self.packed_twiddles(inverse, dev), self._brp_index(self.n, dev))
         return self._scale(y.reshape(x.shape), inverse)
 
     # -- Bailey four-step (the reference's Pallas route) -----------------------------
@@ -149,12 +161,11 @@ class NTTDomain:
         NTTs of size n2 over the n1 lanes; written out as k = k2·n1 + k1."""
         F, n, dev = self.F, self.n, x.device
         n1, n2, twm = self._four_step_tables(inverse, dev)
-        tws = self.twiddles(inverse, dev)
-        y = self._stages(x.reshape(1, n1, n2, F.NL), tws[:n1.bit_length() - 1],
-                         self._brp_index(n1, dev))
+        tw = self.packed_twiddles(inverse, dev)
+        y = self._stages(x.reshape(1, n1, n2, F.NL), tw, self._brp_index(n1, dev))
         y = ntt_twm(F, y.reshape(n, F.NL), twm)
         y = y.reshape(n1, n2, F.NL).transpose(0, 1).contiguous().reshape(1, n2, n1, F.NL)
-        y = self._stages(y, tws[:n2.bit_length() - 1], self._brp_index(n2, dev))
+        y = self._stages(y, tw, self._brp_index(n2, dev))
         return self._scale(y.reshape(n, F.NL), inverse)
 
     def _use_four_step(self, x) -> bool:
