@@ -59,7 +59,8 @@
    l. recover_cells_and_kzg_proofs from every other cell and from all 128:
       cells and proofs equal to path j's; from 63 cells None; 3 timed, with
       path j's launches per call.
-   Every kernel must have launched over the paths.
+   Every kernel must have launched over the paths. Prints K1's launches per
+   call on each path, which must stay within K1_LAUNCHES.
 3. Holds every kernel against its plain version on the card at the paths'
    shapes (K4-K6 on both the fixed-base and the online commit's streams,
    K4 with a one-run lane, a padding lane and a run of [P, -P, Q, Q, ...];
@@ -69,6 +70,11 @@
    longest run, adds that need products and time;
    K7 at the online commit's (W, c) = (15, 9) and the 2^16 MSM's (11, 12)
    with an infinity lane and a Y = 0 lane,
+   K1's product chains (mont_prod: m = 1-4 factors, k = 0 and 12 squarings,
+   factors of period n, 4,096 (also expanded) and 1, 0, 1 and p - 1 lanes)
+   over Fr and Fp, and K1's call and device time at n = 1, 16, 4,096,
+   90,112 and z^N; K10 at the setup's Fp (32, 12, 3,072) and the paths' Fr
+   (32, 8, 512) and (32, 8, 8,192), with device times;
    K9 over Fp at 512, 16 and 1 lanes and over Fr at what compute_kzg_proof
    hands it (eval_at's 512 chained lanes, the quotient's one) and at 16,
    K13 at 2, 128 and 130 lanes, K11 at 2 and 256 pairs, K12 at 1 and 256
@@ -173,6 +179,10 @@ PIPELINE = ("mont_mul", "ec_add", "ec_double_k", "flush_scan", "merge_scan", "bu
 # ntt_stages launches: 2 a four-step, 1 a batched radix-2, 1 and an ntt_bfly
 # a coset transform of 8,192, so the stage launches a call are at most
 STAGE_LAUNCHES = {"cells": 4, "cells and proofs": 5, "verify cells": 1, "recover": 13}
+# K1 launches a call at most (one launch a product chain; 222 in all before)
+K1_LAUNCHES = {"commit": 3, "online commit": 4, "batch 16": 3, "msm 2^16": 1, "prove": 12,
+               "verify": 39, "verify blob": 45, "verify batch 64": 13, "cells": 3,
+               "cells and proofs": 7, "verify cells": 9, "recover": 13}
 PAIRING = ("mont_mul", "ec_add", "fermat_inv", "g1_decompress", "miller_loop", "final_exp")
 # an FK20 call (paths j and l): 16 scalar multiplications (the Hadamard
 # product, 7 + 1 of the inverse EC-FFT, 7 of the EC-FFT), 28 butterfly adds
@@ -523,7 +533,8 @@ def main():
         from constantine_tpu_torch.ops import limbs as lb
         from constantine_tpu_torch.ops import msm_gpu
         from constantine_tpu_torch.ops.cuda_ec import ec_add, ec_double
-        from constantine_tpu_torch.ops.cuda_field import mont_mul, mont_mul_plain
+        from constantine_tpu_torch.ops.cuda_field import (mont_mul, mont_mul_plain, mont_prod,
+                                                          mont_prod_plain)
         from constantine_tpu_torch.ops import ntt as ntt_mod
         from constantine_tpu_torch.ops.cuda_ntt import (ntt_bfly, ntt_bfly_plain, ntt_stages,
                                                         ntt_stages_plain, ntt_twm)
@@ -1057,6 +1068,11 @@ def main():
 
     for name in PATH_KERNELS:
         print(f"launches per call, {name}: {json.dumps(per_call[name])}", flush=True)
+    k1_calls = {name: per_call[name]["mont_mul"] for name in PATH_KERNELS}
+    print(f"K1 (mont_mul, one launch a product chain) launches per call on paths a-l: "
+          f"{json.dumps(k1_calls)}, total {sum(k1_calls.values())}", flush=True)
+    check(all(k1_calls[k] <= v for k, v in K1_LAUNCHES.items()),
+          f"K1 launches per call {k1_calls}, above {K1_LAUNCHES}")
     for name in ("cells and proofs", "recover"):
         got = {k: per_call[name][k] for k in FK20_LAUNCHES}
         check(got == FK20_LAUNCHES, f"{name}: launches per call {got}, not {FK20_LAUNCHES}")
@@ -1135,6 +1151,40 @@ def main():
     record("mont_mul", (mont_mul(a, b, F),), (mont_mul_plain(a, b, F),),
            lambda: mont_mul(a, b, F), lambda: mont_mul_plain(a, b, F),
            3 * n1 * FE_BYTES, n1, reps=50)
+    k1_dev = device_ms(torch, lambda: mont_mul(a, b, F), 50)
+    print(f"mont_mul n={n1}: device {k1_dev} ms a call (calls queued behind a sleep)",
+          flush=True)
+    # K1's chains: m = 1-4 factors, k = 0 or 12 squarings, factor j of period
+    # n, 4,096 (a row of the blobs' axis: the roots), 1 (a constant) or n, over
+    # Fr at two blobs (n = 8,192) and Fp at the same shape; 0, 1 and p - 1 in
+    # the full operands, and the 4,096 operand also expanded (stride 0)
+    for field in (fr, F):
+        c0, c1 = (rand_fe(2 * 4096, field).reshape(2, 4096, field.NL) for _ in range(2))
+        c0[0, :3] = field.encode([0, 1, field.p_int - 1], dev)
+        c1[1, 7:10] = field.encode([field.p_int - 1, 0, 1], dev)
+        c_row = rand_fe(4096, field)
+        c_const = rand_fe(1, field)[0]
+        c_rowe = c_row.expand(2, 4096, field.NL)
+        for cm, ck, cfs in ((1, 12, (c0,)), (2, 0, (c0, c_row)), (2, 12, (c_rowe, c1)),
+                            (3, 0, (c0, c_rowe, c_const)), (3, 12, (c_const, c1, c_row)),
+                            (4, 0, (c0, c_row, c_const, c1)),
+                            (4, 12, (c1, c_const, c_rowe, c0))):
+            same((mont_prod(field, *cfs, squarings=ck),),
+                 (mont_prod_plain(field, *cfs, squarings=ck),),
+                 f"mont_prod {field.name} m={cm} k={ck}")
+    print("check mont_prod over Fr and Fp, m = 1-4, k = 0 and 12, periods n, 4,096 (also "
+          "expanded) and 1, with 0, 1 and p - 1 lanes: exact", flush=True)
+    # K1 a call, through the wrapper: n = 1, 16, 4,096 (m = 2) and z^N (Fr,
+    # m = 1, k = 12): host clock, synchronised, and the device's time
+    zq = rand_fe(1, fr)
+    for k1_label, k1_fn in ([(f"mont_mul n={n}", lambda n=n: mont_mul(a[:n], b[:n], F))
+                             for n in (1, 16, 4096)]
+                            + [("mont_prod z^N (Fr, n=1, k=12)",
+                                lambda: mont_prod(fr, zq, squarings=12))]):
+        k1_call = statistics.median(host_ms(torch, k1_fn, 50))
+        print(f"{k1_label}: a call {k1_call:.4f} ms (host clock, synchronised), enqueued "
+              f"{enqueue_ms(torch, k1_fn, 50):.4f} ms (back to back), device "
+              f"{device_ms(torch, k1_fn, 50)} ms", flush=True)
 
     # K3 double (k = 1) at the precompute's width, plus infinity and Y = 0 lanes
     nd = 4096
@@ -1414,6 +1464,21 @@ def main():
            lambda: aff._chain_bwd_inv_plain(pe, dC, bpinv),
            (3 * C8 + 1) * Mw * FE_BYTES, 2 * C8 * Mw, reps=20,
            label=f"chain_bwd_inv C={C8} Mw={Mw}")
+    print(f"chain_bwd_inv C={C8} Mw={Mw}: device "
+          f"{device_ms(torch, lambda: aff.chain_bwd_inv(pe, dC, bpinv), 20)} ms", flush=True)
+    # K10 at the paths' Fr chains: Field.batch_inv of 4,096 or 8,192 lanes
+    # padded to 16,384 (Mw = 512), and the batch verify's 262,144 (8,192)
+    for Mw10 in (512, 8192):
+        pe10, d10 = (rand_fe(C8 * Mw10, fr).T.reshape(fr.NL, C8, Mw10).transpose(0, 1)
+                     .contiguous() for _ in range(2))
+        bi10 = rand_fe(Mw10, fr).T.contiguous()
+        k10 = lambda: fr.affine.chain_bwd_inv(pe10, d10, bi10)  # noqa: E731
+        record("chain_bwd_inv", (k10(),), (fr.affine._chain_bwd_inv_plain(pe10, d10, bi10),),
+               k10, lambda: fr.affine._chain_bwd_inv_plain(pe10, d10, bi10),
+               (3 * C8 + 1) * Mw10 * 4 * fr.NL, 2 * C8 * Mw10, reps=20, keep=False,
+               label=f"chain_bwd_inv Fr C={C8} Mw={Mw10}", mul_ops=FR_MUL_OPS)
+        print(f"chain_bwd_inv Fr C={C8} Mw={Mw10}: device {device_ms(torch, k10, 20)} ms",
+              flush=True)
     fp_inv_ops = inv_batches(F.p_int)[3]
     for n9 in (512, 16, 1):
         x9 = bp[:, :n9].contiguous()

@@ -146,8 +146,8 @@ def _kernel_name(mangled: str) -> str:
                 break
             cand = mangled[j:j + int(mangled[i:j])]
             if cand.endswith("_kernel") and cand[:1].isalpha() and len(cand) == int(mangled[i:j]):
-                limbs = re.search(r"ILi(\d+)E", mangled)
-                return cand + (f"<{limbs.group(1)}>" if limbs else "")
+                args = re.findall(r"Li(\d+)E", mangled[j + int(mangled[i:j]):])
+                return cand + (f"<{', '.join(args)}>" if args else "")
     return mangled
 
 
@@ -173,18 +173,32 @@ class Kernel:
         self._fn = None
 
     def __call__(self, device: torch.device, *args):
-        if self._fn is None:
-            fn = getattr(library(self.source), self.symbol)
-            fn.argtypes = self.argtypes + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
-            rc = self._fn(*args, stream)
+        fn = self._fn or self._bind()
+        index = device.index
+        if index is None or index == torch.cuda.current_device():
+            rc = fn(*args, current_stream_handle(index))
+        else:
+            with torch.cuda.device(device):
+                rc = fn(*args, current_stream_handle(index))
         if rc != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} "
                                f"({cuda_error_string(rc)})")
         self.launches += 1
+
+    def _bind(self):
+        fn = getattr(library(self.source), self.symbol)
+        fn.argtypes = self.argtypes + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return fn
+
+
+def current_stream_handle(index) -> int:
+    """The cudaStream_t of the current stream of device `index` (None: the
+    current device), as an int, without making a torch.cuda.Stream (the
+    call torch's generated kernels make)."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def cuda_error_string(rc: int) -> str:
@@ -200,7 +214,8 @@ I = ctypes.c_int
 # Every kernel of the port, by the name chip_smoke.py and PERF.md use.
 KERNELS = {
     k.name: k for k in (
-        Kernel("mont_mul", "field_kernels", "ctt_mont_mul", [I, P, P, P, P, I]),
+        Kernel("mont_mul", "field_kernels", "ctt_mont_prod", [I, P, I, I] + [P] * 4 + [I] * 4
+               + [P, I]),
         Kernel("ec_add", "ec_kernels", "ctt_ec_add", [P] + [P] * 9 + [I]),
         Kernel("ec_double_k", "ec_kernels", "ctt_ec_double_k", [P] + [P] * 6 + [I, I]),
         Kernel("ec_scalar_mul", "ec_kernels", "ctt_ec_scalar_mul", [P] + [P] * 7 + [I, I]),

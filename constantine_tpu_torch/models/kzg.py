@@ -31,9 +31,7 @@ def export_g1_points(ctx, P):
     big | inf]: one batched inversion, and one copy to the host makes the
     compressed bytes (``KZG.unpack_export``, ``g1_compress_canonical``)."""
     fp = ctx.fp
-    (x, y), inf = ctx.g1.to_affine(P)
-    xc = fp.from_mont(x)
-    yc = fp.from_mont(y)
+    (xc, yc), inf = ctx.g1.to_affine(P, canonical=True)
     half = fp.from_int((fp.p_int + 1) // 2, xc.device)
     big = lb.geq(yc, half)
     return torch.cat([xc, big[..., None].to(torch.int32),
@@ -100,12 +98,10 @@ class KZG:
         diff = F.sub(z[..., None, :].expand_as(evals), roots.expand_as(evals))   # z - w_i
         in_dom = F.is_zero(diff)                                    # at most one a row
         inv_diff = F.batch_inv(diff)                                # 0 where in-domain
-        ssum = _tree_sum(F, F.mul(F.mul(evals, roots.expand_as(evals)), inv_diff))
-        zn = z
-        for _ in range(LOG_BLOB):                                   # z^N
-            zn = F.square(zn)
+        ssum = _tree_sum(F, F.prod(evals, roots, inv_diff))          # roots read per blob
+        zn = F.prod(z, squarings=LOG_BLOB)                          # z^N
         one = F.broadcast_one(z.shape[:-1], z.device)
-        y_off = F.mul(F.mul(F.sub(zn, one), self.n_inv.expand_as(z)), ssum)
+        y_off = F.prod(F.sub(zn, one), self.n_inv, ssum)
         y_in = _tree_sum(F, lb.cselect(in_dom, evals, torch.zeros_like(evals)))
         hit = in_dom.any(-1)
         return lb.cselect(hit, y_in, y_off), hit, in_dom, inv_diff
@@ -129,7 +125,7 @@ class KZG:
         den_inv = F.neg(inv_diff)                                   # 1/(w_i - z)
         q = F.mul(num, den_inv)
         wm_inv = F.batch_inv(z_mont[None])[0]                       # z = w_m if in-domain
-        t = F.mul(F.mul(q, self.roots_brp), wm_inv.expand_as(q))
+        t = F.prod(q, self.roots_brp, wm_inv)
         qm = F.neg(_tree_sum(F, t))
         return lb.cselect(in_dom, qm.expand_as(q), q), y
 

@@ -260,7 +260,10 @@ class PeerDAS:
             for _ in range(FIELD_ELEMENTS_PER_CELL):
                 scale.append(cur)
                 cur = cur * hinv % r_mod
-        agg = F.mul(col, F.encode(scale, self.device).reshape(col.shape))
+        # canonical (the MSM's scalars): a product by the canonical one leaves
+        # the Montgomery domain, and the sums and negation below commute with it
+        agg = F.prod(col, F.encode(scale, self.device).reshape(col.shape),
+                     F.consts(self.device)["one_canon"])
         while agg.shape[0] > 1:
             h = agg.shape[0] // 2
             head = F.add(agg[:h], agg[h:2 * h])
@@ -274,7 +277,7 @@ class PeerDAS:
         L = FIELD_ELEMENTS_PER_CELL
         final_g1 = msm(g1, (torch.cat([xs[:nu], mx[:L], xs[nu:]]),
                             torch.cat([ys[:nu], my[:L], ys[nu:]])),
-                       torch.cat([self._scalars(weights, inf[:nu]), F.from_mont(F.neg(agg[0])),
+                       torch.cat([self._scalars(weights, inf[:nu]), F.neg(agg[0]),
                                   self._scalars(ws, p_inf)]), scalar_bits=255)
         # e(final, [1]G2) * e(-proof_lincomb, [tau^64]G2) == 1
         P = tuple(torch.stack([a, b]) for a, b in zip(final_g1, g1.neg(proof_lincomb)))

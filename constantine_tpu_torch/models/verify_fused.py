@@ -185,9 +185,12 @@ class FusedVerifier:
         zs_m = fr.to_mont(lb.to_tensor(np.stack(zs), dev))
         ys, _, _ = self.kzg.eval_at(fr.to_mont(lb.to_tensor(np.stack(polys), dev)), zs_m)
         r_m = fr.encode([int(v) for v in r_powers], dev)
-        r_l = fr.from_mont(r_m)
-        rz_l = fr.from_mont(fr.mul(r_m, zs_m))
-        s_ry = fr.from_mont(fr.neg(_field_sum(fr, fr.mul(r_m, ys))))[None]
+        r_l = fr.from_int([int(v) for v in r_powers], dev)
+        # canonical r z and -sum r y: a product by the canonical one leaves
+        # the Montgomery domain, and the sum and negation commute with it
+        one_c = fr.consts(dev)["one_canon"]
+        rz_l = fr.prod(r_m, zs_m, one_c)
+        s_ry = fr.neg(_field_sum(fr, fr.prod(r_m, ys, one_c)))[None]
         c_inf = torch.as_tensor(cinf, device=dev)[:, None]
         p_inf = torch.as_tensor(pinf, device=dev)[:, None]
         zero = torch.zeros_like(r_l)

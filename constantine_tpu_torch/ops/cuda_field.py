@@ -1,9 +1,12 @@
 """Field kernels -- wrappers and plain versions.
 
 K1, the batched Montgomery multiply: counterpart of
-``constantine_tpu/ops/pallas_field.py`` (``PallasMontMul``). ``mont_mul``
-launches ``csrc/field_kernels.cu:ctt_mont_mul`` on CUDA tensors and runs
-``mont_mul_plain`` on CPU tensors.
+``constantine_tpu/ops/pallas_field.py`` (``PallasMontMul``). ``mont_prod``
+computes a chain (f0 * ... * f_{m-1})^(2^k) of up to four factors and any
+squarings in one launch of ``csrc/field_kernels.cu:ctt_mont_prod`` on CUDA
+tensors, reading a broadcast factor in place, and runs ``mont_prod_plain``
+(a chain of ``mont_mul_plain``) on CPU tensors; ``mont_mul`` is its m = 2,
+k = 0 case.
 
 K8-K10, batched inversion: ``CudaAffine``, counterpart of
 ``constantine_tpu/ops/pallas_ec.py`` (``PallasAffine``), for 12-limb Fp and
@@ -18,6 +21,8 @@ import torch
 
 from .. import build
 from . import limbs as lb
+
+CHAIN_MAX_C = 32    # csrc/chain.cuh: K10's links a chain, one block row each
 
 
 def _on_cuda(*ts) -> bool:
@@ -72,25 +77,93 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, F) -> torch.Tensor:
     return lb.from_digits(out).reshape(shape)
 
 
-def mont_mul(a: torch.Tensor, b: torch.Tensor, F) -> torch.Tensor:
-    """Field.mul: the K1 kernel on CUDA tensors, the plain version on CPU."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return mont_mul_plain(a, b, F)
-    if a.device != b.device or a.device.type != "cuda":
-        raise ValueError(f"mont_mul: operands on {a.device} and {b.device}")
-    if a.dtype != torch.int32 or b.dtype != torch.int32:
-        raise TypeError("mont_mul takes int32 limb tensors")
-    a, b = torch.broadcast_tensors(a, b)
-    if a.shape[-1] != F.NL:
-        raise ValueError(f"mont_mul: last axis {a.shape[-1]} != {F.NL} limbs")
-    a = a.contiguous()
-    b = b.contiguous()
-    out = torch.empty_like(a)
-    n = a.numel() // F.NL
-    build.KERNELS["mont_mul"](
-        a.device, F.NL, ctypes.c_void_p(F.mod_words.ctypes.data),
-        build.ptr(a), build.ptr(b), build.ptr(out), n)
+def _rows(t: torch.Tensor, batch: torch.Size):
+    """t as a factor of a product over the batch shape `batch`: (core,
+    period), where element i of the flattened batch reads row i mod period
+    of core (..., NL). t's leading axes may be missing, of size 1 or
+    broadcast (stride 0); the rest must be batch's last axes. Any other
+    broadcast raises: the kernel reads a factor where it lies."""
+    core = t
+    while core.dim() > 1 and (core.shape[0] == 1 or core.stride(0) == 0):
+        core = core[0]
+    tail = core.shape[:-1]
+    if (len(tail) > len(batch) or tuple(batch[len(batch) - len(tail):]) != tuple(tail)
+            or any(st == 0 and sz > 1 for sz, st in zip(core.shape, core.stride()))):
+        raise ValueError(f"mont_prod: a factor of shape {tuple(t.shape)} is not a periodic "
+                         f"broadcast over {tuple(batch)}")
+    return core, max(1, core.numel() // core.shape[-1])
+
+
+def mont_prod_plain(F, *factors, squarings: int = 0) -> torch.Tensor:
+    """(f0 * ... * f_{m-1})^(2^squarings), products left to right, as a chain
+    of mont_mul_plain; broadcasts like torch."""
+    _check_chain(len(factors), squarings)
+    acc = factors[0]
+    for f in factors[1:]:
+        acc = mont_mul_plain(acc, f, F)
+    for _ in range(squarings):
+        acc = mont_mul_plain(acc, acc, F)
+    return acc
+
+
+def _check_chain(m: int, squarings: int):
+    if not 1 <= m <= 4 or squarings < 0 or m - 1 + squarings < 1:
+        raise ValueError(f"mont_prod takes 1-4 factors and k >= 0 squarings, at least one "
+                         f"product (got m = {m}, k = {squarings})")
+
+
+def mont_prod(F, *factors, squarings: int = 0) -> torch.Tensor:
+    """(f0 * ... * f_{m-1})^(2^squarings) in Montgomery form, 1 <= m <= 4:
+    one K1 launch on CUDA tensors, mont_prod_plain on CPU tensors.
+
+    The factors broadcast against each other as in torch, but only
+    periodically: each factor is its own rows repeated down the batch
+    (_rows), so a constant, a row of the batch's last axes or an
+    ``expand`` of either is read in place, never copied. On the card every
+    factor's rows start 16-byte aligned (the kernel moves 16-byte words)."""
+    _check_chain(len(factors), squarings)
+    f0 = factors[0]
+    dev, shape = f0.device, f0.shape
+    uniform = True
+    for f in factors:
+        if f.device != dev:
+            raise ValueError(f"mont_prod: operands on {f.device} and {dev}")
+        uniform = uniform and f.shape == shape and f.is_contiguous()
+    if not uniform:
+        shape = torch.broadcast_shapes(*(f.shape for f in factors))
+    if shape[-1] != F.NL:
+        raise ValueError(f"mont_prod: last axis {shape[-1]} != {F.NL} limbs")
+    if uniform:
+        rows = [(f, None) for f in factors]             # every factor full, in place
+    else:
+        rows = [_rows(f, shape[:-1]) for f in factors]
+    if dev.type == "cpu":
+        return mont_prod_plain(F, *factors, squarings=squarings)
+    if dev.type != "cuda":
+        raise ValueError(f"mont_prod: unsupported device {dev}")
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    n = out.numel() // F.NL
+    if n == 0:
+        return out
+    ptrs, periods = [0] * 4, [1] * 4
+    for j, (core, period) in enumerate(rows):
+        if core.dtype != torch.int32:
+            raise TypeError("mont_prod takes int32 limb tensors")
+        if not core.is_contiguous():
+            # a strided layout, not a broadcast; held in `rows` until the launch
+            core = core.contiguous()
+            rows[j] = core, period
+        ptrs[j], periods[j] = core.data_ptr(), period or n
+        if ptrs[j] % 16:
+            raise ValueError("mont_prod: a factor's rows are not 16-byte aligned")
+    build.KERNELS["mont_mul"](dev, F.NL, F.mod_ptr, len(factors), squarings, *ptrs, *periods,
+                              out.data_ptr(), n)
     return out
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor, F) -> torch.Tensor:
+    """Field.mul: a * b * R^-1 mod p, mont_prod's m = 2, k = 0 case."""
+    return mont_prod(F, a, b)
 
 
 class CudaAffine:
@@ -175,12 +248,17 @@ class CudaAffine:
 
     def chain_bwd_inv(self, pe, dC, bpinv):
         """inv[c] = run * pe[c]; run *= d[c], c = C-1..0, run starting at
-        bpinv (NL, Mw). Returns inv (C, NL, Mw)."""
+        bpinv (NL, Mw). Returns inv (C, NL, Mw). The kernel computes it as
+        bpinv * (d[c+1] ... d[C-1]) * pe[c], a suffix scan (csrc/chain.cuh):
+        the same limbs. C <= CHAIN_MAX_C."""
         self._check(dC, "chain_bwd_inv")
         C, NL, Mw = dC.shape
         if pe.shape != dC.shape or bpinv.shape != (NL, Mw):
             raise ValueError(f"chain_bwd_inv: {tuple(pe.shape)}, {tuple(dC.shape)}, "
                              f"{tuple(bpinv.shape)}")
+        if C > CHAIN_MAX_C:
+            raise ValueError(f"chain_bwd_inv: C = {C} links, the kernel's block takes at most "
+                             f"{CHAIN_MAX_C}")
         if not _on_cuda(pe, dC, bpinv):
             return self._chain_bwd_inv_plain(pe, dC, bpinv)
         inv = torch.empty_like(dC)

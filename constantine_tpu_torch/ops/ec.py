@@ -62,15 +62,18 @@ class ECGroup:
             z = F.cselect(inf_mask, torch.zeros_like(z), z)
         return (x, y, z)
 
-    def to_affine(self, P):
-        """Jacobian -> ((x, y), inf_mask) with one batched inversion."""
+    def to_affine(self, P, canonical: bool = False):
+        """Jacobian -> ((x, y), inf_mask) with one batched inversion; x and
+        y in Montgomery form, or canonical (from_mont's) with `canonical`."""
         X, Y, Z = P
         F = self.F
         zinv = F.batch_inv(Z)          # 0 stays 0 for points at infinity
-        zinv2 = F.square(zinv)
-        x = F.mul(X, zinv2)
-        y = F.mul(Y, F.mul(zinv, zinv2))
-        return (x, y), F.is_zero(Z)
+        if canonical:
+            # Z^-2 as a plain integer: a Montgomery product by it leaves the
+            # Montgomery domain
+            zc2 = F.prod(zinv, zinv, F.consts(Z.device)["one_canon"])
+            return (F.mul(X, zc2), F.prod(Y, zinv, zc2)), F.is_zero(Z)
+        return (F.prod(X, zinv, zinv), F.prod(Y, zinv, zinv, zinv)), F.is_zero(Z)
 
     def is_inf(self, P):
         return self.F.is_zero(P[2])

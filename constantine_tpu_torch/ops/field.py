@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from . import limbs as lb
-from .cuda_field import CudaAffine, mont_mul
+from .cuda_field import CudaAffine, mont_mul, mont_prod
 
 
 class Field:
@@ -40,6 +40,7 @@ class Field:
         # kernel argument: p limbs, m0, Montgomery one (csrc/ec.cuh Mod<N>)
         self.mod_words = np.concatenate(
             [self.p, np.array([self.m0ninv], np.uint32), self.one]).astype(np.uint32)
+        self.mod_ptr = self.mod_words.ctypes.data        # the K1 launch's argument
         nprime = (-pow(self.p_int, -1, self.R_int)) % self.R_int
         D = 2 * NL                                  # 16-bit digits
         p16 = lb.unpack16(self.p).astype(np.int64)
@@ -48,6 +49,7 @@ class Field:
             "p32": self.p.astype(np.int64),
             "p16": p16,
             "one": self.one.view(np.int32),
+            "one_canon": lb.int_to_limbs(1, NL).view(np.int32),      # from_mont's factor
             "r2": self.r2.view(np.int32),
             # plain multiply: a*b column sums, and products with -p^-1 (mod R)
             # and with p as float64 matrices (see limbs.column_products)
@@ -122,16 +124,19 @@ class Field:
         """Montgomery product a*b*R^-1 mod p (K1 on CUDA tensors)."""
         return mont_mul(a, b, self)
 
+    def prod(self, *factors, squarings: int = 0):
+        """(f0 * ... * f_{m-1})^(2^squarings), 1 <= m <= 4, in one K1 launch
+        on CUDA tensors; a factor may be a periodic broadcast (mont_prod)."""
+        return mont_prod(self, *factors, squarings=squarings)
+
     def square(self, a):
-        return self.mul(a, a)
+        return mont_prod(self, a, squarings=1)
 
     def to_mont(self, a):
         return self.mul(a, self.consts(a.device)["r2"])
 
     def from_mont(self, a):
-        one_canon = torch.zeros_like(a)
-        one_canon[..., 0] = 1
-        return self.mul(a, one_canon)
+        return self.mul(a, self.consts(a.device)["one_canon"])
 
     # -- exponentiation ---------------------------------------------------------
 
