@@ -14,8 +14,9 @@
 2. Twelve paths, each driven with every launch count set to 0 just before
    it and read just after; each must have launched every kernel it runs:
    a. fixed-base commit: loads the EIP-4844 trusted setup, builds the KZG
-      context (the fixed-base tables, on the card) and commits to four
-      blobs through blob_to_kzg_commitment: a zero blob (infinity), a
+      context (the fixed-base tables, on the card, one ec_double_k launch
+      a table layer: the setup's count is printed and checked) and commits
+      to four blobs through blob_to_kzg_commitment: a zero blob (infinity), a
       sparse blob (held against the host big-int sum) and two dense blobs
       (held against tests/data/torch_kzg_golden.json, made by the JAX
       package); then 5 timed commits;
@@ -73,8 +74,11 @@
    K1's product chains (mont_prod: m = 1-4 factors, k = 0 and 12 squarings,
    factors of period n, 4,096 (also expanded) and 1, 0, 1 and p - 1 lanes)
    over Fr and Fp, and K1's call and device time at n = 1, 16, 4,096,
-   90,112 and z^N; K10 at the setup's Fp (32, 12, 3,072) and the paths' Fr
-   (32, 8, 512) and (32, 8, 8,192), with device times;
+   90,112 and z^N; K8 and K10 at the setup's Fp (32, 12, 3,072) and the
+   paths' Fr (32, 8, 512) and (32, 8, 8,192), with device times; K3 double
+   at a table layer's 4,096 points with k = 1 and 12 and at every (n, k)
+   the MSM tails reach (recorded from the entry points), with infinity and
+   Y = 0 lanes, its device time and chain floor;
    K9 over Fp at 512, 16 and 1 lanes and over Fr at what compute_kzg_proof
    hands it (eval_at's 512 chained lanes, the quotient's one) and at 16,
    K13 at 2, 128 and 130 lanes, K11 at 2 and 256 pairs, K12 at 1 and 256
@@ -792,6 +796,7 @@ def main():
     kzg = get_kzg("cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    setup_dbl = build.launch_counts()["ec_double_k"]
     for name, blob in blobs.items():
         got = eip4844.blob_to_kzg_commitment(blob, kzg)
         check(got == expected[name], f"{name} blob: commitment {got.hex() if got else got} "
@@ -802,6 +807,10 @@ def main():
     end_path("commit", before, 5)
     med = statistics.median(lat)
     print(f"setup (host setup load + tables on the card): {setup_s:.3f} s", flush=True)
+    print(f"setup: {setup_dbl} ec_double_k launches, one a table layer ({kzg._pm.W - 1} layers "
+          f"of {kzg._pm.c} doublings)", flush=True)
+    check(setup_dbl == kzg._pm.W - 1, f"setup: {setup_dbl} ec_double_k launches for "
+                                      f"{kzg._pm.W - 1} table layers")
     print(f"commit latency: median {med:.3f} ms over 5 (min {min(lat):.3f}, max {max(lat):.3f}); "
           f"{1e3 / med:.3f} commits/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
@@ -1186,19 +1195,36 @@ def main():
               f"{enqueue_ms(torch, k1_fn, 50):.4f} ms (back to back), device "
               f"{device_ms(torch, k1_fn, 50)} ms", flush=True)
 
-    # K3 double (k = 1) at the precompute's width, plus infinity and Y = 0 lanes
+    # K3 double at the precompute's width: k = 1 and a table layer's k = 12,
+    # Jacobian table points (Z != 1) with an infinity lane and a Y = 0 lane
     nd = 4096
-    Pd = (tabx[:nd].clone(), taby[:nd].clone(), F.broadcast_one((nd,), dev).clone())
+    Pd = g.double(g.from_affine((tabx[:nd], taby[:nd])))
     Pd[2][0] = 0
     Pd[1][1] = 0
     Pp = planar(Pd)
-    record("ec_double_k", pec.double_k(Pp, 1), planar(ec_double(F, mul_plain, Pd)),
-           lambda: pec.double_k(Pp, 1), lambda: ec_double(F, mul_plain, Pd),
-           6 * nd * FE_BYTES, MULS["double"] * nd, reps=20)
-    one_lane = tuple(v[:, 5:6].contiguous() for v in Pp)            # the tail's double_k(2)
-    same(pec.double_k(one_lane, 2),
-         planar(ec_double(F, mul_plain, ec_double(F, mul_plain, std(one_lane)))),
-         "ec_double_k k=2")
+
+    def double_plain(P, k):
+        for _ in range(k):
+            P = ec_double(F, mul_plain, P)
+        return P
+
+    dk_ms = {}
+
+    def dk_check(P, k, label, keep):
+        """K3 double_k at (NL, n) points P and k against the plain chain;
+        its call and device time."""
+        n = P[0].shape[1]
+        call = record(
+            "ec_double_k", pec.double_k(P, k), planar(double_plain(std(P), k)),
+            lambda: pec.double_k(P, k), lambda: double_plain(std(P), k), 6 * n * FE_BYTES,
+            MULS["double"] * k * (~F.is_zero(P[2].T)).sum().item(), reps=20,
+            label=f"ec_double_k n={n} k={k} {label}", keep=keep)
+        dk_ms[n, k] = call, device_ms(torch, lambda: pec.double_k(P, k), 20)
+
+    dk_check(Pp, 1, "(infinity and Y = 0 lanes)", False)
+    dk_check(Pp, 12, "(a table layer; infinity and Y = 0 lanes)", True)
+    check(g.is_inf(std(pec.double_k(Pp, 12)))[:3].tolist() == [True, True, False],
+          "ec_double_k: infinity and Y = 0 lanes")
 
     def scan_checks(fs, n_pts, c, W, tag, keep):
         """K4, K5 and K6 against their plain versions on one path's stream:
@@ -1389,6 +1415,21 @@ def main():
             b6z[2, :, 2] = 0
             k6_check(b6x, b6y, b6z, T6, f"{label} (degenerate lanes 0-2)", False)
 
+    # K3 double at every (n, k) the MSM tails reach (log2 T doublings of the
+    # windows' lane 0), recorded from the same entry points, with lane 1 at
+    # infinity and lane 3 with Y = 0 where the call has them
+    for label, fn in k6_calls:
+        recorded = record_calls(pec, "double_k", fn)
+        check(recorded, f"{label}: no double_k call recorded")
+        for P3, k3 in recorded:
+            if (P3[0].shape[1], k3) in dk_ms:
+                continue
+            if P3[0].shape[1] > 1:
+                P3[2][:, 1] = 0
+            if P3[0].shape[1] > 3:
+                P3[1][:, 3] = 0
+            dk_check(P3, k3, f"({label}'s tail)", False)
+
     # K3 add at the tail's width (C = 512 chunk lanes), with P == Q, P == -Q,
     # infinity on either side, and P == Q under another Z
     run, _ = pec.bucket_reduce(bx, by, bz, T)
@@ -1456,6 +1497,8 @@ def main():
            lambda: aff.chain_fwd(dC), lambda: aff._chain_fwd_plain(dC),
            (2 * C8 + 1) * Mw * FE_BYTES, C8 * Mw, reps=20,
            label=f"chain_fwd C={C8} Mw={Mw}")
+    print(f"chain_fwd C={C8} Mw={Mw}: device "
+          f"{device_ms(torch, lambda: aff.chain_fwd(dC), 20)} ms", flush=True)
     pe, bp = aff.chain_fwd(dC)
     bpinv = aff.batch_inv_packed(bp)
     record("chain_bwd_inv", (aff.chain_bwd_inv(pe, dC, bpinv),),
@@ -1466,12 +1509,19 @@ def main():
            label=f"chain_bwd_inv C={C8} Mw={Mw}")
     print(f"chain_bwd_inv C={C8} Mw={Mw}: device "
           f"{device_ms(torch, lambda: aff.chain_bwd_inv(pe, dC, bpinv), 20)} ms", flush=True)
-    # K10 at the paths' Fr chains: Field.batch_inv of 4,096 or 8,192 lanes
-    # padded to 16,384 (Mw = 512), and the batch verify's 262,144 (8,192)
+    # K8 and K10 at the paths' Fr chains: Field.batch_inv of 4,096 or 8,192
+    # lanes padded to 16,384 (Mw = 512), and the batch verify's 262,144 (8,192)
     for Mw10 in (512, 8192):
         pe10, d10 = (rand_fe(C8 * Mw10, fr).T.reshape(fr.NL, C8, Mw10).transpose(0, 1)
                      .contiguous() for _ in range(2))
         bi10 = rand_fe(Mw10, fr).T.contiguous()
+        k8 = lambda: fr.affine.chain_fwd(d10)  # noqa: E731
+        record("chain_fwd", k8(), fr.affine._chain_fwd_plain(d10), k8,
+               lambda: fr.affine._chain_fwd_plain(d10), (2 * C8 + 1) * Mw10 * 4 * fr.NL,
+               C8 * Mw10, reps=20, keep=False, label=f"chain_fwd Fr C={C8} Mw={Mw10}",
+               mul_ops=FR_MUL_OPS)
+        print(f"chain_fwd Fr C={C8} Mw={Mw10}: device {device_ms(torch, k8, 20)} ms",
+              flush=True)
         k10 = lambda: fr.affine.chain_bwd_inv(pe10, d10, bi10)  # noqa: E731
         record("chain_bwd_inv", (k10(),), (fr.affine._chain_bwd_inv_plain(pe10, d10, bi10),),
                k10, lambda: fr.affine._chain_bwd_inv_plain(pe10, d10, bi10),
@@ -1592,6 +1642,13 @@ def main():
         print(f"scaled_doubles W={W7} c={c7}: longest lane {c7 * (W7 - 1)} doublings of 3 "
               f"rounds; chain floor {floor7:.4f} ms; kernel {ms7:.4f} ms, {ms7 / floor7:.2f}x "
               "the floor", flush=True)
+    for (n3, k3), (ms3, dms3) in dk_ms.items():
+        floor3 = 3 * k3 * lat_us * 1e-3
+        print(f"ec_double_k n={n3} k={k3}: {k3} doublings of 3 rounds; chain floor "
+              f"{floor3:.4f} ms; kernel {ms3:.4f} ms a call (CUDA events), device "
+              + ("not measured" if dms3 is None else
+                 f"{dms3:.4f} ms a launch (CUDA events, queued behind a sleep), "
+                 f"{dms3 / floor3:.2f}x the floor"), flush=True)
     for (T6, lanes6), ms6 in k6_ms.items():
         floor6 = 5 * (T6 - 1) * lat_us * 1e-3
         dms = device_ms(torch, lambda: pec.bucket_reduce(*k6_in[T6, lanes6], T6), 20)

@@ -8,8 +8,8 @@
 // them, the same group law in levels of independent products for a team of
 // threads over the two-chain multiply fe_mul_eo: the scalar-multiplication
 // ladder of ec_scalar_mul, the team add of ec_add, the team madd and lane
-// walk of flush_scan, merge_scan's runs, bucket_reduce's lanes and
-// scaled_doubles' lanes.
+// walk of flush_scan, merge_scan's runs, bucket_reduce's lanes and the
+// lanes of double_k and scaled_doubles.
 //
 // Layout: an element is N little-endian 32-bit limbs in Montgomery form with
 // R = 2^(32N) -- the reference's R, since its 16-bit digits pair into these
@@ -831,21 +831,29 @@ CTT_HD void store_split(const Team& tm, uint32_t* ox, uint32_t* oy, uint32_t* oz
   }
 }
 
-// -- scaled_doubles' lane (K7) --------------------------------------------------
+// -- double_k's lane (K3 double) and scaled_doubles' lane (K7) -------------------
 //
-// Lane w of the planar (N, W) point columns x, y, z becomes 2^(c w) P_w:
-// c w doublings over ec_double_team, one after the other (each needs the
-// last), then the team's members split the store. Infinity (Z = 0) stays
-// infinity and Y = 0 becomes it, as in ec_double; lane 0 (and c = 0) is a
-// copy.
+// Lane i of the planar (N, n) point columns x, y, z becomes 2^k P_i: k
+// doublings over ec_double_team, one after the other (each needs the last)
+// with P in registers between them, then the team's members split the
+// store. Infinity (Z = 0) stays infinity and Y = 0 becomes it, as in
+// ec_double, whose limbs every doubling gives; k = 0 is a copy.
+template <int N, class Team>
+CTT_HD void double_k_lane(Team& tm, const uint32_t* x, const uint32_t* y, const uint32_t* z,
+                          uint32_t* ox, uint32_t* oy, uint32_t* oz, int n, int k, int i,
+                          const Mod<N>& M) {
+  const size_t sn = (size_t)n;
+  Jac<N> P{load_col<N>(x + i, sn), load_col<N>(y + i, sn), load_col<N>(z + i, sn)};
+  for (int s = 0; s < k; ++s) P = ec_double_team<N>(tm, P, M);
+  store_split<N>(tm, ox + i, oy + i, oz + i, sn, P);
+}
+
+// K7: lane w of (N, W) becomes 2^(c w) P_w; lane 0 (and c = 0) is a copy.
 template <int N, class Team>
 CTT_HD void scaled_doubles_lane(Team& tm, const uint32_t* x, const uint32_t* y,
                                 const uint32_t* z, uint32_t* ox, uint32_t* oy, uint32_t* oz,
                                 int W, int c, int w, const Mod<N>& M) {
-  const size_t sw = (size_t)W;
-  Jac<N> P{load_col<N>(x + w, sw), load_col<N>(y + w, sw), load_col<N>(z + w, sw)};
-  for (int s = 0; s < c * w; ++s) P = ec_double_team<N>(tm, P, M);
-  store_split<N>(tm, ox + w, oy + w, oz + w, sw, P);
+  double_k_lane<N>(tm, x, y, z, ox, oy, oz, W, c * w, w, M);
 }
 
 // -- flush_scan's lane ---------------------------------------------------------

@@ -8,9 +8,10 @@
 // p[12], m0, one[12] as in ec.cuh. The flush scan's entries take the
 // kernel's planar stream instead: keys (K, M), xy (K, 24, M), out (K, 12, M);
 // the merge scan's, keys (K, M) and q, out (K, 12, M) x 3; bucket_reduce's,
-// buckets (T, 12, C) and run, wsum (12, C) x 3. The inverse (inv.cuh) takes
-// rows of 8 or 12 limbs. bucket_reduce's lanes run a thread for each member
-// of their two teams (host_team.h): build with -pthread.
+// buckets (T, 12, C) and run, wsum (12, C) x 3; double_k's, planar (12, n)
+// columns. The inverse (inv.cuh) takes rows of 8 or 12 limbs. The lanes of
+// bucket_reduce and double_k run a thread for each member of their teams
+// (host_team.h): build with -pthread.
 #include <vector>
 
 #include "ec.cuh"
@@ -226,6 +227,34 @@ extern "C" int ctt_host_bucket_reduce_teams(const uint32_t* mod_words, int team,
     case 1: bucket_lanes<1>(md, bx, by, bz, rx, ry, rz, wx, wy, wz, T, C, reverse); return 0;
     case 2: bucket_lanes<2>(md, bx, by, bz, rx, ry, rz, wx, wy, wz, T, C, reverse); return 0;
     case 4: bucket_lanes<4>(md, bx, by, bz, rx, ry, rz, wx, wy, wz, T, C, reverse); return 0;
+    default: return -1;
+  }
+}
+
+// K3 double's lanes (ec.cuh double_k_lane) one team after the other, in the
+// kernel's lane order or reversed: a team of one, or kT threads meeting at a
+// barrier.
+template <int kT>
+void double_k_lanes(const Mod<NL>& md, const uint32_t* x, const uint32_t* y, const uint32_t* z,
+                    uint32_t* ox, uint32_t* oy, uint32_t* oz, int n, int k, bool reverse) {
+  for (int t = 0; t < n; ++t) {
+    const int i = reverse ? n - 1 - t : t;
+    play_team<NL, kT>(
+        [&](auto& tm) { double_k_lane<NL>(tm, x, y, z, ox, oy, oz, n, k, i, md); });
+  }
+}
+
+// K3 double (ec.cuh double_k_lane): lane i of the planar (12, n) columns
+// becomes 2^k P_i, a team of T = 1, 2 or 4 a lane, the lanes in order or
+// reversed. Returns -1 for another T.
+extern "C" int ctt_host_ec_double_k_team(const uint32_t* mod_words, int T, int reverse,
+                                         const uint32_t* x, const uint32_t* y, const uint32_t* z,
+                                         uint32_t* ox, uint32_t* oy, uint32_t* oz, int n, int k) {
+  const Mod<NL> md = mod_from_words<NL>(mod_words);
+  switch (T) {
+    case 1: double_k_lanes<1>(md, x, y, z, ox, oy, oz, n, k, reverse != 0); return 0;
+    case 2: double_k_lanes<2>(md, x, y, z, ox, oy, oz, n, k, reverse != 0); return 0;
+    case 4: double_k_lanes<4>(md, x, y, z, ox, oy, oz, n, k, reverse != 0); return 0;
     default: return -1;
   }
 }

@@ -78,6 +78,16 @@
 // paths' widths it stays latency-bound (0.009-0.015 ms a launch on the
 // H100), and a call's time is the wrapper's host cost (0.03-0.06 ms).
 //
+// K3 double (ctt_ec_double_k) replaces _elemwise's double and double_k
+// (pallas_ec.py:590, 599), which run every doubling as a pass over all
+// lanes. Its callers are the fixed-base setup (a table layer is c = 12
+// doublings of 4,096 points, one launch) and the MSM tail (k = 2-4 on 1-16
+// lanes): a lane's k doublings are a chain. One thread a lane ran 7
+// dependent products a doubling; here a team of SM_TEAM threads a lane runs
+// ec_double_team (3 rounds over fe_mul_eo) k times with the point in
+// registers (ec.cuh double_k_lane), so the bound that matters is 3k rounds
+// of fe_mul_eo's latency, far above the bytes' bound.
+//
 // K7 scaled_doubles replaces pallas_ec.py:931-1011, which runs (W-1)*c grid
 // steps over all W lanes and masks each step to the lanes that still owe a
 // doubling. Lane w owes c*w doublings, each on the last one's result, so
@@ -109,7 +119,6 @@ using namespace ctt;
 namespace {
 
 constexpr int NL = 12;
-constexpr int THREADS = 128;
 using F = Fe<NL>;
 using J = Jac<NL>;
 using MD = Mod<NL>;
@@ -125,18 +134,6 @@ __device__ __forceinline__ void store(uint32_t* __restrict__ base, int stride, i
                                       const F& v) {
 #pragma unroll
   for (int l = 0; l < NL; ++l) base[(size_t)l * stride + idx] = v.v[l];
-}
-
-__global__ void ec_double_k_kernel(MD md, const uint32_t* x, const uint32_t* y,
-                                   const uint32_t* z, uint32_t* ox, uint32_t* oy,
-                                   uint32_t* oz, int n, int k) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  J P{load(x, n, i), load(y, n, i), load(z, n, i)};
-  for (int s = 0; s < k; ++s) P = ec_double<NL>(P, md);
-  store(ox, n, i, P.X);
-  store(oy, n, i, P.Y);
-  store(oz, n, i, P.Z);
 }
 
 // ec_scalar_mul: [k]Q per lane, every bit in one launch (ec.cuh's
@@ -186,6 +183,22 @@ ec_add_kernel(MD md, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
   const unsigned mask = ((1u << SM_TEAM) - 1) << ((threadIdx.x & 31) - rank);
   SmTeam<NL, SM_TEAM> tm{slots + team * SM_WORDS, mask, rank};
   store_split<NL>(tm, x3 + i, y3 + i, z3 + i, n, ec_add_team<NL>(tm, P, Q, md));
+}
+
+// K3 double: k doublings of lane i of (NL, n) in one launch (ec.cuh
+// double_k_lane), a team of SM_TEAM threads a lane, launched like
+// ec_scalar_mul (16 lanes a block of 64 threads).
+__global__ void __launch_bounds__(SM_THREADS)
+ec_double_k_kernel(MD md, const uint32_t* x, const uint32_t* y, const uint32_t* z,
+                   uint32_t* ox, uint32_t* oy, uint32_t* oz, int n, int k) {
+  const int team = threadIdx.x / SM_TEAM;
+  const int i = blockIdx.x * SM_LANES + team;
+  if (i >= n) return;  // a whole team
+  __shared__ uint32_t slots[SM_LANES * SM_WORDS];
+  const int rank = threadIdx.x % SM_TEAM;
+  const unsigned mask = ((1u << SM_TEAM) - 1) << ((threadIdx.x & 31) - rank);
+  SmTeam<NL, SM_TEAM> tm{slots + team * SM_WORDS, mask, rank};
+  double_k_lane<NL>(tm, x, y, z, ox, oy, oz, n, k, i, md);
 }
 
 // K7, the online MSM's window combine: lane w of (NL, W) becomes
@@ -278,8 +291,6 @@ merge_scan_kernel(MD md, const int* __restrict__ keys, const uint32_t* __restric
   merge_runs<NL>(tm, keys, qx, qy, qz, ex, ey, ez, K, M, m, k0, min(k0 + MS_CHUNK, K), md);
 }
 
-inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
-
 }  // namespace
 
 extern "C" int ctt_ec_add(const uint32_t* mod_words, const void* x1, const void* y1,
@@ -298,7 +309,8 @@ extern "C" int ctt_ec_double_k(const uint32_t* mod_words, const void* x, const v
                                const void* z, void* ox, void* oy, void* oz, int n,
                                int k, void* stream) {
   if (n > 0)
-    ec_double_k_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+    ec_double_k_kernel<<<(n + SM_LANES - 1) / SM_LANES, SM_THREADS, 0,
+                         (cudaStream_t)stream>>>(
         mod_from_words<NL>(mod_words), (const uint32_t*)x, (const uint32_t*)y,
         (const uint32_t*)z, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, k);
   return (int)cudaGetLastError();

@@ -142,16 +142,16 @@ extern "C" int ctt_mont_prod(int nl, const uint32_t* mod_words, int m, int k, co
 //
 // Translation of the sequential grid: the TPU walks C on the grid's minor
 // axis with the running product in VMEM scratch (K10 in reverse through its
-// index map). K8 here: one thread owns lane m and loops over c itself. K10:
-// an exclusive suffix scan over the chain axis in shared memory, a thread a
-// link (chain.cuh).
+// index map). Here K8 is an exclusive prefix scan over segments of the
+// chain, a thread a segment, and K10 an exclusive suffix scan over the
+// chain axis, a thread a link, both in shared memory (chain.cuh).
 //
 // Bound on an H100: K8 and K10 do 1 and 2 multiplies per element against
 // 2-3 elements moved (300-600 operations per 48-96 bytes), so they sit near
 // the balance of the two bounds and are latency-bound below a few hundred
-// thousand lanes; K8 keeps the running product in registers and reads each
-// element once, K10 trades C log C products a lane for a depth of
-// log C + 2.
+// thousand lanes; the scans trade more products a lane (K8 about 2C, K10 C
+// log C) for a depth of 2 (S - 1) + log2(C / S) (K8) or log C + 2 (K10)
+// products.
 //
 // K9 runs on 1 to 512 lanes (at most 4 blocks), so it is one lane's latency
 // whatever its operations. The reference's square-and-multiply over p - 2 is
@@ -165,21 +165,29 @@ extern "C" int ctt_mont_prod(int nl, const uint32_t* mod_words, int m, int k, co
 // is the unique inverse, so its limbs are the reference's; the time does not
 // depend on the input, and 0 gives 0.
 
+// K8's links a thread and lanes a block (PERF.md: chosen on the H100): below
+// CHAIN_FWD_WIDE lanes, where a chain's depth decides, segments of 2 links
+// and 4 lanes a block (the paths' Mw = 512: 128 blocks); from there on,
+// where the card is busy and the products' count decides, 4 links and 16
+// lanes. The tile is then at most 2 x 16 x 12 x 4 words (6 KB) or 2 x 8 x 12
+// x 16 (12 KB): no opt-in above 48 KB.
+constexpr int CHAIN_FWD_WIDE = 2048;
+
 // dC (C, N, Mw) -> pe (C, N, Mw), pe[c] = d[0] * ... * d[c-1] (exclusive),
-// and bp (N, Mw), the product of the whole chain.
-template <int N>
-__global__ void chain_fwd_kernel(Mod<N> md, const uint32_t* __restrict__ d,
-                                 uint32_t* __restrict__ pe, uint32_t* __restrict__ bp,
-                                 int C, int Mw) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= Mw) return;
-  Fe<N> run = fe_one<N>(md);
-  for (int c = 0; c < C; ++c) {
-    const size_t off = (size_t)c * N * Mw;
-    store_lane<N>(pe + off, Mw, m, run);
-    run = fe_mul<N>(run, load_lane<N>(d + off, Mw, m), md);
+// and bp (N, Mw), the product of the whole chain, for every segment of S
+// links of a block of G lanes (chain.cuh chain_fwd_phase), a barrier
+// between the scan's phases.
+template <int N, int S, int G>
+__global__ void __launch_bounds__(G * CHAIN_MAX_C / S)
+    chain_fwd_kernel(Mod<N> md, const uint32_t* __restrict__ d, uint32_t* __restrict__ pe,
+                     uint32_t* __restrict__ bp, int C, int Mw) {
+  extern __shared__ uint32_t chain_tile[];
+  const int L = chain_levels((C + S - 1) / S);
+  for (int p = 0; p <= L + 1; ++p) {
+    chain_fwd_phase<N>(md, d, pe, bp, chain_tile, C, S, Mw, G, blockIdx.x * G, threadIdx.x,
+                       threadIdx.y, p);
+    if (p <= L) __syncthreads();
   }
-  store_lane<N>(bp, Mw, m, run);
 }
 
 // K10's lanes a block, by limb count (PERF.md: chosen on the H100): 4 for
@@ -220,11 +228,23 @@ constexpr int CHAIN_THREADS = 128;
 
 inline int chain_blocks(int n) { return (n + CHAIN_THREADS - 1) / CHAIN_THREADS; }
 
+template <int N, int S, int G>
+static void launch_chain_fwd_sg(const Mod<N>& md, const void* d, void* pe, void* bp, int C,
+                                int Mw, cudaStream_t s) {
+  const int n = (C + S - 1) / S;
+  chain_fwd_kernel<N, S, G><<<(Mw + G - 1) / G, dim3(G, n),
+                              chain_tile_words(n, N, G) * sizeof(uint32_t), s>>>(
+      md, (const uint32_t*)d, (uint32_t*)pe, (uint32_t*)bp, C, Mw);
+}
+
 template <int N>
 static void launch_chain_fwd(const uint32_t* mod_words, const void* d, void* pe, void* bp,
                              int C, int Mw, cudaStream_t s) {
-  chain_fwd_kernel<N><<<chain_blocks(Mw), CHAIN_THREADS, 0, s>>>(
-      mod_from_words<N>(mod_words), (const uint32_t*)d, (uint32_t*)pe, (uint32_t*)bp, C, Mw);
+  const Mod<N> md = mod_from_words<N>(mod_words);
+  if (Mw < CHAIN_FWD_WIDE)
+    launch_chain_fwd_sg<N, 2, 4>(md, d, pe, bp, C, Mw, s);
+  else
+    launch_chain_fwd_sg<N, 4, 16>(md, d, pe, bp, C, Mw, s);
 }
 
 template <int N>
@@ -252,9 +272,11 @@ static void launch_fermat_inv(const uint32_t* mod_words, const uint32_t* r3_word
       md, inv_consts<N>(md, r3_words), (const uint32_t*)x, (uint32_t*)out, n);
 }
 
+// C <= CHAIN_MAX_C links a chain.
 extern "C" int ctt_chain_fwd(int nl, const uint32_t* mod_words, const void* d, void* pe,
                              void* bp, int C, int Mw, void* stream) {
   if (C <= 0 || Mw <= 0) return (int)cudaGetLastError();
+  if (C > CHAIN_MAX_C) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (nl) {
     case 8:

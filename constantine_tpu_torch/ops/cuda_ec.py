@@ -159,8 +159,13 @@ class CudaEC:
         return out
 
     def double_k(self, P, k: int):
-        """k successive doublings of (NL, n) points."""
+        """k >= 0 successive doublings of (NL, n) points. The kernel runs all
+        k in one launch, a team of threads a lane over the doubling in 3
+        levels of products (``csrc/ec.cuh`` ``double_k_lane``): the plain
+        doubling's limbs."""
         self._check_coords(P)
+        if k < 0:
+            raise ValueError(f"double_k: k = {k} doublings")
         if not _on_cuda(*P):
             out = tuple(map(_std, P))
             for _ in range(k):

@@ -22,7 +22,7 @@ import torch
 from .. import build
 from . import limbs as lb
 
-CHAIN_MAX_C = 32    # csrc/chain.cuh: K10's links a chain, one block row each
+CHAIN_MAX_C = 32    # csrc/chain.cuh: K8's and K10's links a chain, one block row each
 
 
 def _on_cuda(*ts) -> bool:
@@ -202,9 +202,13 @@ class CudaAffine:
     def chain_fwd(self, dC):
         """dC (C, NL, Mw): chains down axis 0. Returns (pe (C, NL, Mw), the
         exclusive prefix products d[0]..d[c-1], and bp (NL, Mw), each
-        chain's product)."""
+        chain's product). The kernel computes them as a prefix scan
+        (csrc/chain.cuh): the same limbs. C <= CHAIN_MAX_C."""
         self._check(dC, "chain_fwd")
         C, NL, Mw = dC.shape
+        if C > CHAIN_MAX_C:
+            raise ValueError(f"chain_fwd: C = {C} links, the kernel's block takes at most "
+                             f"{CHAIN_MAX_C}")
         if not _on_cuda(dC):
             return self._chain_fwd_plain(dC)
         pe = torch.empty_like(dC)

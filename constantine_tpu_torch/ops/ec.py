@@ -3,8 +3,9 @@
 Counterpart of ``constantine_tpu/ops/ec.py`` (``ECGroup``). G1
 (``ECGroup``): points are tuples of (..., NL) int32 field elements;
 infinity is any point with Z == 0, built as (1, 1, 0) in Montgomery form.
-``double`` and ``add`` run the K3 kernels on CUDA tensors (through the
-planar layout of ``cuda_ec``) and their plain versions on CPU tensors;
+``double``, ``double_k`` and ``add`` run the K3 kernels on CUDA tensors
+(through the planar layout of ``cuda_ec``) and their plain versions on CPU
+tensors;
 ``madd`` composes field ops (K1 on CUDA), as the reference's XLA group law
 did. ``scalar_mul`` is the reference's scan of double, add and select over
 the scalar bits; on CUDA tensors it is one ``ec_scalar_mul`` launch
@@ -93,8 +94,13 @@ class ECGroup:
 
     def double(self, P):
         """Jacobian doubling (dbl-2009-l): K3 double on CUDA tensors."""
+        return self.double_k(P, 1)
+
+    def double_k(self, P, k: int):
+        """k successive doublings: one K3 double launch on CUDA tensors, the
+        plain doubling k times on CPU tensors."""
         Pp, batch = _to_planar(P)
-        return _from_planar(self.pec.double(Pp), batch)
+        return _from_planar(self.pec.double_k(Pp, k), batch)
 
     def add(self, P, Q):
         """Complete Jacobian addition: K3 add on CUDA tensors."""

@@ -48,17 +48,16 @@ class PrecomputedMSM:
     def _precompute(self, pts):
         """[2^(c*j)] P_i for j in 0..W-1, affine, (W*N, NL) per coordinate.
 
-        Layer j+1 is layer j doubled c times (K3 double on the card), kept
-        in Jacobian form; ONE batched inversion then brings all W-1 layers
-        back to affine. The reference inverts once per layer instead; the
-        affine tables are the same canonical values either way.
+        Layer j+1 is layer j doubled c times (one K3 double launch on the
+        card), kept in Jacobian form; ONE batched inversion then brings all
+        W-1 layers back to affine. The reference inverts once per layer
+        instead; the affine tables are the same canonical values either way.
         """
         g = self.group
         cur = g.from_affine(pts)
         layers = []
         for _ in range(self.W - 1):
-            for _ in range(self.c):
-                cur = g.double(cur)
+            cur = g.double_k(cur, self.c)
             layers.append(cur)
         (x, y), _inf = g.to_affine(tuple(torch.cat([lay[i] for lay in layers])
                                          for i in range(3)))
