@@ -9,9 +9,10 @@
    Fp and Fr, K9 also at 0, 1 and p - 1; K13 on G1 points with both signs,
    a non-square x, an on-curve point outside G1 and x = 0 lanes; K11 on the generators, a pair with
    P = -P', a pair with P and Q both negated, and a batch of one; K12 on
-   f = 1 and on Miller outputs; K3' ntt_bfly, ntt_stages and ntt_twm with
-   0, 1, r - 1 lanes and w = 1).
-2. Twelve paths, each driven with every launch count set to 0 just before
+   f = 1 and on Miller outputs; K3' ntt_bfly and ntt_stages, the latter
+   with every combination of its load factor, store factor (periods 1 and
+   n) and transposed store, with 0, 1, r - 1 lanes and w = 1).
+2. Thirteen paths, each driven with every launch count set to 0 just before
    it and read just after; each must have launched every kernel it runs:
    a. fixed-base commit: loads the EIP-4844 trusted setup, builds the KZG
       context (the fixed-base tables, on the card, one ec_double_k launch
@@ -60,6 +61,14 @@
    l. recover_cells_and_kzg_proofs from every other cell and from all 128:
       cells and proofs equal to path j's; from 63 cells None; 3 timed, with
       path j's launches per call.
+   m. the NTT at n = 2^16 (bench.py's bls12381_fr_ntt_65536 shape): the
+      four-step forward and inverse (two ntt_stages launches each) held
+      exactly against the radix-2 route through a batch of one (a pass of
+      12 stages, 4 ntt_bfly launches) and against each other; 5 timed each.
+   A four-step transform and a coset transform of 8,192 (forward and
+   inverse) must each be two ntt_stages launches, no other kernel, and
+   two allocations (the passes' outputs: no transpose copy, no K1 temp);
+   on paths i-l ntt_bfly must launch never.
    Every kernel must have launched over the paths. Prints K1's launches per
    call on each path, which must stay within K1_LAUNCHES.
 3. Holds every kernel against its plain version on the card at the paths'
@@ -84,9 +93,12 @@
    K13 at 2, 128 and 130 lanes, K11 at 2 and 256 pairs, K12 at 1 and 256
    lanes, K3' ntt_bfly at every stage of the 4096 iNTT and 8192 NTT
    (four-step), the (64, 128) FK20 NTT and the (128, 64) cell iNTT, and at
-   the coset transforms' last stage, and ntt_stages at every pass the
-   PeerDAS paths run (recorded from the entry points), with the stage
-   launches a call of paths i-l; K6 at every (T, lanes) the MSM paths reach
+   the 2^16 radix-2 route's last 4 stages, the column pass's store factor
+   against K1's plain product with the twiddle matrix after the per-stage
+   route, and ntt_stages at every pass the PeerDAS paths run (recorded from
+   the entry points with its factors), each of those shapes also at every
+   combination of the factors and the store, with the stage launches a
+   call of paths i-l; K6 at every (T, lanes) the MSM paths reach
    (recorded from the entry points), with its chain floor; ec_scalar_mul at 64
    lanes x 255 bits with k = 0, 1, r - 1, r, r + 2 and a point at infinity,
    at 1/n's 128 lanes, a bank stage's 4,096 and the Hadamard product's
@@ -162,8 +174,7 @@ REPLACES = {
     "miller_loop": (MILLER_SRC, "constantine_tpu/ops/pallas_pairing.py:633"),
     "final_exp": (FINAL_EXP_SRC, "constantine_tpu/ops/pallas_pairing.py:712"),
     "ntt_bfly": (NTT_SRC, "constantine_tpu/ops/ntt.py:168"),
-    "ntt_stages": (NTT_SRC, "constantine_tpu/ops/ntt.py:168"),
-    "ntt_twm": (NTT_SRC, "constantine_tpu/ops/ntt.py:198"),
+    "ntt_stages": (NTT_SRC, "constantine_tpu/ops/ntt.py:168; constantine_tpu/ops/ntt.py:198"),
 }
 PIPELINE = ("mont_mul", "ec_add", "ec_double_k", "flush_scan", "merge_scan", "bucket_reduce")
 # what each path must launch: the fixed-base setup inverts 90,112 points
@@ -174,19 +185,24 @@ PIPELINE = ("mont_mul", "ec_add", "ec_double_k", "flush_scan", "merge_scan", "bu
 # with K13, adds table points with K3 and runs the pairing (K11, K12); the
 # blob verifies evaluate through the chains; the batch folds with two online
 # MSMs; compute_cells runs two four-step transforms (K3', K1 for the
-# Montgomery conversions and 1/n); FK20 adds the batched radix-2 NTT, the
+# Montgomery conversions); FK20 adds the batched radix-2 NTT, the
 # scalar multiplications (ec_scalar_mul, one launch each) and the EC-FFT
 # butterflies and tree (K3 add), and compresses through K9; the
 # cell verify decompresses with K13, runs the cell iNTT, two online MSMs and
-# the pairing; recovery adds the coset transforms (whose last stage is
-# ntt_bfly's) and Fr inversions (K8-K10). K3' runs a transform's passes as
-# ntt_stages launches: 2 a four-step, 1 a batched radix-2, 1 and an ntt_bfly
-# a coset transform of 8,192, so the stage launches a call are at most
+# the pairing; recovery adds the coset transforms and Fr inversions
+# (K8-K10); the 2^16 NTT runs the four-step and, through a batch of one,
+# the radix-2 route, whose last 4 stages are ntt_bfly's (and its 1/n a K1
+# product). K3' runs a transform's passes as ntt_stages launches, its
+# pointwise products (the twiddle matrix, 1/n, the coset shifts) as their
+# factors: 2 a four-step or coset transform, 1 a batched radix-2, so the
+# stage launches a call are at most
 STAGE_LAUNCHES = {"cells": 4, "cells and proofs": 5, "verify cells": 1, "recover": 13}
+# the paths that never launch ntt_bfly: every transform of theirs fits the passes
+NO_BFLY = ("cells", "cells and proofs", "verify cells", "recover")
 # K1 launches a call at most (one launch a product chain; 222 in all before)
 K1_LAUNCHES = {"commit": 3, "online commit": 4, "batch 16": 3, "msm 2^16": 1, "prove": 12,
-               "verify": 39, "verify blob": 45, "verify batch 64": 13, "cells": 3,
-               "cells and proofs": 7, "verify cells": 9, "recover": 13}
+               "verify": 39, "verify blob": 45, "verify batch 64": 13, "cells": 2,
+               "cells and proofs": 6, "verify cells": 8, "recover": 8, "ntt 2^16": 1}
 PAIRING = ("mont_mul", "ec_add", "fermat_inv", "g1_decompress", "miller_loop", "final_exp")
 # an FK20 call (paths j and l): 16 scalar multiplications (the Hadamard
 # product, 7 + 1 of the inverse EC-FFT, 7 of the EC-FFT), 28 butterfly adds
@@ -210,12 +226,11 @@ PATH_KERNELS = {
     "verify": PAIRING,
     "verify blob": _union(PAIRING, CHAINS),
     "verify batch 64": _union(PIPELINE, ("scaled_doubles",), CHAINS, PAIRING),
-    "cells": ("mont_mul", "ntt_stages", "ntt_twm"),
-    "cells and proofs": ("mont_mul", "ntt_stages", "ntt_twm", "ec_add", "ec_scalar_mul",
-                         "fermat_inv"),
+    "cells": ("mont_mul", "ntt_stages"),
+    "cells and proofs": ("mont_mul", "ntt_stages", "ec_add", "ec_scalar_mul", "fermat_inv"),
     "verify cells": _union(PIPELINE, ("scaled_doubles", "ntt_stages"), PAIRING),
-    "recover": _union(("mont_mul", "ntt_stages", "ntt_bfly", "ntt_twm", "ec_add",
-                       "ec_scalar_mul"), CHAINS),
+    "recover": _union(("mont_mul", "ntt_stages", "ec_add", "ec_scalar_mul"), CHAINS),
+    "ntt 2^16": ("mont_mul", "ntt_stages", "ntt_bfly"),
 }
 
 
@@ -255,15 +270,20 @@ def k13_chain(p: int, u: int, T: int = 4) -> int:
             + (bin(u2).count("1") - 1) * rounds(2, 2, 3, 2, 2) + rounds(3, 2))
 
 
-def record_calls(obj, name, fn):
+def record_calls(obj, name, fn, keywords=False):
     """The arguments of every call of obj.<name> (a method, or a module's
-    function) that fn makes, tensors cloned."""
+    function) that fn makes, tensors cloned: the positional ones, or
+    (positional, keywords) if `keywords`."""
     seen = []
     own = name in vars(obj)
     orig = getattr(obj, name)
 
+    def clone(a):
+        return a.clone() if hasattr(a, "clone") else a
+
     def rec(*args, **kw):
-        seen.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+        pos = tuple(clone(a) for a in args)
+        seen.append((pos, {k: clone(v) for k, v in kw.items()}) if keywords else pos)
         return orig(*args, **kw)
 
     setattr(obj, name, rec)
@@ -541,7 +561,7 @@ def main():
                                                           mont_prod_plain)
         from constantine_tpu_torch.ops import ntt as ntt_mod
         from constantine_tpu_torch.ops.cuda_ntt import (ntt_bfly, ntt_bfly_plain, ntt_stages,
-                                                        ntt_stages_plain, ntt_twm)
+                                                        ntt_stages_plain)
         from constantine_tpu_torch.ops.msm import (_apply_glv, _glv_for_group,
                                                    _signed_digits, msm)
         from constantine_tpu_torch.ops.ntt import bit_reversal_perm, get_domain
@@ -607,6 +627,28 @@ def main():
                 bad = (a != b).reshape(a.shape[0], -1).any(-1) if a.dim() > 1 else a != b
                 raise CheckFailed(f"{what}: output {i} differs from the plain version "
                                   f"(first rows {bad.nonzero().flatten()[:8].tolist()})")
+
+    def pass_variants(y):
+        """ntt_stages' keyword sets over y (B, ns, lanes, NL): every
+        combination of a load factor and a store factor (none, period 1,
+        period ns * lanes; tables from the seeded generator, 0, 1 and
+        r - 1 first) and the transposed store."""
+        fr_ = ctx.fr
+        n = y.shape[1] * y.shape[2]
+        tabs = []
+        for period in (None, 1, n):
+            t = None if period is None else rand_fe(period, fr_)
+            if t is not None and period > 2:
+                t[:3] = fr_.encode([0, 1, fr_.p_int - 1], dev)
+            tabs.append(t)
+        return [dict(in_fac=fi, out_fac=fo, transposed=tr) for fi in tabs for fo in tabs
+                for tr in (False, True)]
+
+    def variant_name(kw):
+        def per(f):
+            return "-" if f is None else f"p{f.shape[0]}"
+        return (f"in {per(kw.get('in_fac'))} out {per(kw.get('out_fac'))}"
+                + (" transposed" if kw.get("transposed") else ""))
 
     def k13(g1d, xm, sign, plain=False):
         """K13 (or its plain version) with the ok bits as int32, for same()."""
@@ -740,12 +782,14 @@ def main():
         same((ntt_stages(fr, xs, tw16, brp16, stages),),
              (ntt_stages_plain(fr, xs, tw16, brp16, stages),),
              f"ntt_stages quick {tuple(xs.shape[:3])} stages={stages}")
-    xt = xq.reshape(-1, fr.NL).contiguous()
-    same((ntt_twm(fr, xt, xt.flip(0).contiguous()),),
-         (mont_mul_plain(xt, xt.flip(0), fr),), "ntt_twm quick")
+    for xs, stages in ((xq, 4), (xq, 2), (xq4, 4)):
+        for kw in pass_variants(xs):
+            same((ntt_stages(fr, xs, tw16, brp16, stages, **kw),),
+                 (ntt_stages_plain(fr, xs, tw16, brp16, stages, **kw),),
+                 f"ntt_stages quick {tuple(xs.shape[:3])} stages={stages} {variant_name(kw)}")
     print("quick checks: mont_mul (Fp, Fr), ec_add, ec_double_k, flush_scan, merge_scan, "
           "bucket_reduce, scaled_doubles, chain_fwd, fermat_inv, chain_bwd_inv (Fp, Fr), "
-          "g1_decompress, miller_loop, final_exp, ntt_bfly, ntt_stages, ntt_twm exact",
+          "g1_decompress, miller_loop, final_exp, ntt_bfly, ntt_stages (every variant) exact",
           flush=True)
 
     # ---- 2. the paths ---------------------------------------------------------------
@@ -1075,6 +1119,47 @@ def main():
     report_path("recover_cells_and_kzg_proofs from 64 cells (64 and 128 cells match path j, 63 "
                 "None)", lat, 1e3, "recoveries/s")
 
+    # m. the NTT at 2^16: the four-step (2-D input) against the radix-2 route
+    # (a batch of one: 12 stages a pass, 4 ntt_bfly launches, 1/n a K1 product)
+    fr = ctx.fr
+    dom16 = get_domain("BLS12_381", 16)
+    raw16 = np.random.default_rng(65536).bytes(32 * 65536)
+    xn16 = fr.to_mont(lb.to_tensor(lb.ints_to_limbs(
+        [int.from_bytes(raw16[32 * i:32 * i + 32], "big") % r for i in range(65536)], fr.NL),
+        dev))
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    f16, i16 = dom16.ntt(xn16), dom16.intt(xn16)
+    check(torch.equal(f16, dom16.ntt(xn16[None])[0]), "ntt 2^16: four-step != radix-2")
+    check(torch.equal(i16, dom16.intt(xn16[None])[0]), "intt 2^16: four-step != radix-2")
+    check(torch.equal(dom16.intt(f16), xn16), "intt(ntt(x)) != x at 2^16")
+    before = build.launch_counts()
+    lat = host_ms(torch, lambda: dom16.ntt(xn16), 5)
+    lat_i = host_ms(torch, lambda: dom16.intt(xn16), 5)
+    end_path("ntt 2^16", before, 5)
+    report_path("NTT n = 2^16, four-step (equal to the radix-2 route, intt(ntt) = x)", lat,
+                1e3, "ntts/s")
+    report_path("iNTT n = 2^16, four-step", lat_i, 1e3, "intts/s")
+
+    # a four-step and a coset transform are two ntt_stages launches and two
+    # allocations (the passes' outputs), nothing else
+    dom13 = get_domain("BLS12_381", 13)
+    x13 = xn16[:8192].contiguous()
+    for label, fn in (("ntt 8192", lambda: dom13.ntt(x13)), ("intt 8192", lambda: dom13.intt(x13)),
+                      ("coset_ntt 8192", lambda: dom13.coset_ntt(x13, 7)),
+                      ("coset_intt 8192", lambda: dom13.coset_intt(x13, 7))):
+        fn()
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        fn()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+        launched = {k: v for k, v in build.launch_counts().items() if v}
+        check(launched == {"ntt_stages": 2} and allocs == 2,
+              f"{label}: launches {launched}, {allocs} allocations (two ntt_stages, two)")
+    print("check a four-step and a coset transform of 8192, forward and inverse: two "
+          "ntt_stages launches and two allocations each, nothing else", flush=True)
+
     for name in PATH_KERNELS:
         print(f"launches per call, {name}: {json.dumps(per_call[name])}", flush=True)
     k1_calls = {name: per_call[name]["mont_mul"] for name in PATH_KERNELS}
@@ -1091,6 +1176,8 @@ def main():
           flush=True)
     check(all(stage_calls[k] <= v for k, v in STAGE_LAUNCHES.items()),
           f"K3' stage launches per call {stage_calls}, above {STAGE_LAUNCHES}")
+    bfly_calls = {name: path_counts[name]["ntt_bfly"] for name in NO_BFLY}
+    check(not any(bfly_calls.values()), f"ntt_bfly launched on paths i-l: {bfly_calls}")
     total = {k: sum(c[k] for c in path_counts.values()) for k in build.KERNELS}
     check(all(v > 0 for v in total.values()), f"a kernel never launched: {total}")
 
@@ -1668,11 +1755,10 @@ def main():
     # K3' ntt_bfly at every stage of the paths' transforms, each stage's
     # input the transform's own: the blob's 4096 iNTT and its 8192 extension
     # NTT (the four-step's column and row stages), the FK20 NTT over (64,
-    # 128) and the verify's cell iNTT over (128, 64) (radix-2); ntt_twm on
-    # both twiddle matrices. Kept in the kernels' line: the 8192 NTT's twiddle
-    # matrix; ntt_bfly's and ntt_stages' rows come from the passes below.
-    fr = ctx.fr
-
+    # 128) and the verify's cell iNTT over (128, 64) (radix-2); the column
+    # pass's store factor (the twiddle matrix, transposed) against K1's plain
+    # product after the per-stage route. ntt_bfly's and ntt_stages' rows of
+    # the kernels' line come from the passes below.
     def check_stages(label, y, tws, brp):
         y = y.index_select(1, brp)
         for st, tw in enumerate(tws):
@@ -1682,13 +1768,15 @@ def main():
             y = got
         return y
 
-    def stage_work(y, stages):
-        """Bytes (y in, out, the twiddles) and multiplies of `stages` stages
-        over y."""
-        return (2 * y.numel() * 4 + ((1 << stages) - 1) * 4 * fr.NL,
-                stages * y.numel() // (2 * fr.NL))
+    def stage_work(y, stages, kw):
+        """Bytes (y in, out, the twiddles, the factor tables) and multiplies
+        (the stages', a factor's one an element) of a pass over y."""
+        facs = [f for f in (kw.get("in_fac"), kw.get("out_fac")) if f is not None]
+        return (2 * y.numel() * 4 + ((1 << stages) - 1) * 4 * fr.NL
+                + sum(f.numel() * 4 for f in facs),
+                stages * y.numel() // (2 * fr.NL) + len(facs) * y.numel() // fr.NL)
 
-    dom12, dom13 = get_domain("BLS12_381", 12), get_domain("BLS12_381", 13)
+    dom12 = get_domain("BLS12_381", 12)
     coeffs = das._blob_to_coeffs(blobs["dense1"])
     evals = fr.to_mont(lb.to_tensor(eip4844.blob_to_polynomial(blobs["dense1"])[0], dev))
     evals = evals.index_select(0, torch.as_tensor(brp12, device=dev))
@@ -1697,20 +1785,20 @@ def main():
                                        coeffs)]), False)):
         n1, n2, twm = dom._four_step_tables(inverse, dev)
         tws = dom.twiddles(inverse, dev)
+        brp1 = torch.as_tensor(bit_reversal_perm(n1), device=dev)
         y = check_stages(f"{label} columns (1, {n1}, {n2})", x.reshape(1, n1, n2, fr.NL),
-                         tws[:n1.bit_length() - 1], torch.as_tensor(bit_reversal_perm(n1),
-                                                                     device=dev))
-        yt = y.reshape(-1, fr.NL)
-        record("ntt_twm", (ntt_twm(fr, yt, twm),), (mont_mul_plain(yt, twm, fr),),
-               lambda: ntt_twm(fr, yt, twm), lambda: mont_mul_plain(yt, twm, fr),
-               3 * yt.numel() * 4, yt.shape[0], reps=50, label=f"ntt_twm {label} n={dom.n}",
-               mul_ops=FR_MUL_OPS, keep=not inverse)
-        y = ntt_twm(fr, yt, twm).reshape(n1, n2, fr.NL).transpose(0, 1).contiguous()
-        y = check_stages(f"{label} rows (1, {n2}, {n1})", y.reshape(1, n2, n1, fr.NL),
-                         tws[:n2.bit_length() - 1], torch.as_tensor(bit_reversal_perm(n2),
-                                                                     device=dev))
-        check(torch.equal(dom._scale(y.reshape(-1, fr.NL), inverse), dom.ntt(x) if not inverse
-                          else dom.intt(x)), f"{label}: stages do not compose to the transform")
+                         tws[:n1.bit_length() - 1], brp1)
+        col = ntt_stages(fr, x.reshape(1, n1, n2, fr.NL), dom.packed_twiddles(inverse, dev),
+                         brp1, n1.bit_length() - 1, out_fac=twm, transposed=True)
+        same((col,), (mont_mul_plain(y.transpose(1, 2).contiguous(),
+                                     twm.reshape(1, n2, n1, fr.NL), fr),),
+             f"{label}: the column pass's store factor against K1's plain twiddle product")
+        y = check_stages(f"{label} rows (1, {n2}, {n1})", col, tws[:n2.bit_length() - 1],
+                         torch.as_tensor(bit_reversal_perm(n2), device=dev))
+        y = y.reshape(-1, fr.NL)
+        y = mont_mul_plain(y, dom.n_inv(dev).expand_as(y), fr) if inverse else y
+        check(torch.equal(y, dom.intt(x) if inverse else dom.ntt(x)),
+              f"{label}: stages do not compose to the transform")
     circ = coeffs.index_select(0, das._circ_idx).reshape(64, 128, fr.NL)
     circ = torch.where(das._circ_mask[..., None], circ, torch.zeros_like(circ))
     cell_evals = fr.to_mont(lb.to_tensor(np.concatenate(
@@ -1719,13 +1807,15 @@ def main():
                                    ("cell iNTT (128, 64, 1)", das.dom_cell, cell_evals, True)):
         check_stages(label, x.reshape(x.shape[0], dom.n, 1, fr.NL), dom.twiddles(inverse, dev),
                      torch.as_tensor(bit_reversal_perm(dom.n), device=dev))
-    print("check ntt_bfly at every stage of the four-step, FK20 and cell transforms: exact",
-          flush=True)
+    print("check ntt_bfly at every stage of the four-step, FK20 and cell transforms, and the "
+          "column pass's store factor against K1's plain product: exact", flush=True)
 
-    # K3' ntt_stages at every pass the PeerDAS paths run and ntt_bfly at the
-    # coset transforms' last stage (h = 4,096 over (1, 8192, 1)), recorded
-    # from the entry points; kept in the kernels' line: the 8192 NTT's column
-    # pass (1, 64, 128) and the coset stage
+    # K3' ntt_stages at every pass the PeerDAS paths run, with its factors
+    # and store as the paths give them (recorded from the entry points), and
+    # each of those shapes at every combination of the factors and the
+    # store; ntt_bfly at the 2^16 radix-2 route's stages (its only caller).
+    # Kept in the kernels' line: the 8192 NTT's column pass (1, 64, 128),
+    # the twiddle matrix on its store, transposed.
     pass_calls = (
         ("cells", lambda: peerdas.compute_cells(blobs["dense1"], das_cells)),
         ("cells and proofs", lambda: peerdas.compute_cells_and_kzg_proofs(blobs["dense1"], das)),
@@ -1734,28 +1824,51 @@ def main():
             half_idx, [cells[1][i] for i in half_idx], das)))
     passes, bflys = {}, {}
     for label, fn in pass_calls:
-        for F_, y, tw, brp_, stages in record_calls(ntt_mod, "ntt_stages", fn):
-            passes.setdefault((*y.shape[:3], stages), (label, y, tw, brp_))
-        for F_, y, tw, h in record_calls(ntt_mod, "ntt_bfly", fn):
-            bflys.setdefault((*y.shape[:3], h), (label, y, tw))
-    for (B, ns, lanes, stages), (label, y, tw, brp_) in passes.items():
-        record("ntt_stages", (ntt_stages(fr, y, tw, brp_, stages),),
-               (ntt_stages_plain(fr, y, tw, brp_, stages),),
-               lambda: ntt_stages(fr, y, tw, brp_, stages),
-               lambda: ntt_stages_plain(fr, y, tw, brp_, stages), *stage_work(y, stages),
-               reps=50, label=f"ntt_stages {label} ({B}, {ns}, {lanes}), {stages} stages",
-               mul_ops=FR_MUL_OPS, keep=(B, ns, lanes) == (1, 64, 128))
-    check(bflys, "recover: no ntt_bfly call recorded")
+        for (F_, y, tw, brp_, stages), kw in record_calls(ntt_mod, "ntt_stages", fn, True):
+            passes.setdefault((*y.shape[:3], stages, variant_name(kw)), (label, y, tw, brp_, kw))
+    for (F_, y, tw, h), _ in record_calls(ntt_mod, "ntt_bfly", lambda: dom16.ntt(xn16[None]),
+                                          True):
+        bflys.setdefault((*y.shape[:3], h), ("2^16 radix-2", y, tw))
+    for (B, ns, lanes, stages, vname), (label, y, tw, brp_, kw) in passes.items():
+        record("ntt_stages", (ntt_stages(fr, y, tw, brp_, stages, **kw),),
+               (ntt_stages_plain(fr, y, tw, brp_, stages, **kw),),
+               lambda: ntt_stages(fr, y, tw, brp_, stages, **kw),
+               lambda: ntt_stages_plain(fr, y, tw, brp_, stages, **kw),
+               *stage_work(y, stages, kw), reps=50,
+               label=f"ntt_stages {label} ({B}, {ns}, {lanes}), {stages} stages, {vname}",
+               mul_ops=FR_MUL_OPS,
+               keep=(B, ns, lanes, vname) == (1, 64, 128, "in - out p8192 transposed"))
+    nvar = 0
+    for (B, ns, lanes, stages) in dict.fromkeys(k[:4] for k in passes):
+        label, y, tw, brp_, _ = next(v for k, v in passes.items() if k[:4] == (B, ns, lanes,
+                                                                               stages))
+        for kw in pass_variants(y):
+            same((ntt_stages(fr, y, tw, brp_, stages, **kw),),
+                 (ntt_stages_plain(fr, y, tw, brp_, stages, **kw),),
+                 f"ntt_stages ({B}, {ns}, {lanes}) {variant_name(kw)}")
+            nvar += 1
+    print(f"check ntt_stages at every pass shape of paths i-l with every combination of the "
+          f"factors and the store ({nvar} launches): exact", flush=True)
+    check(bflys, "ntt 2^16: no ntt_bfly call recorded on the radix-2 route")
     for (B, ns, lanes, h), (label, y, tw) in bflys.items():
         record("ntt_bfly", (ntt_bfly(fr, y, tw, h),), (ntt_bfly_plain(fr, y, tw, h),),
                lambda: ntt_bfly(fr, y, tw, h), lambda: ntt_bfly_plain(fr, y, tw, h),
                2 * y.numel() * 4 + h * 4 * fr.NL, y.numel() // (2 * fr.NL), reps=50,
-               label=f"ntt_bfly {label} ({B}, {ns}, {lanes}) h={h}", mul_ops=FR_MUL_OPS)
-    for (B, ns, lanes, stages), (label, y, tw, brp_) in passes.items():
-        dms = device_ms(torch, lambda: ntt_stages(fr, y, tw, brp_, stages), 20)
-        print(f"ntt_stages ({B}, {ns}, {lanes}), {stages} stages: device "
+               label=f"ntt_bfly {label} ({B}, {ns}, {lanes}) h={h}", mul_ops=FR_MUL_OPS,
+               keep=h == 1 << 15)
+    for (B, ns, lanes, stages, vname), (label, y, tw, brp_, kw) in passes.items():
+        dms = device_ms(torch, lambda: ntt_stages(fr, y, tw, brp_, stages, **kw), 20)
+        print(f"ntt_stages ({B}, {ns}, {lanes}), {stages} stages, {vname}: device "
               f"{'not measured' if dms is None else f'{dms:.4f} ms'} a launch (CUDA events, "
               "queued behind a sleep)", flush=True)
+    for label, fn in (("ntt 2^16 four-step", lambda: dom16.ntt(xn16)),
+                      ("intt 2^16 four-step", lambda: dom16.intt(xn16)),
+                      ("ntt 2^16 radix-2 (a batch of one)", lambda: dom16.ntt(xn16[None])),
+                      ("intt 2^16 radix-2 (a batch of one)", lambda: dom16.intt(xn16[None]))):
+        dms = device_ms(torch, fn, 20)
+        print(f"{label}: {cuda_ms(torch, fn, 20):.4f} ms a call (CUDA events), device "
+              f"{'not measured' if dms is None else f'{dms:.4f} ms'} a call (queued behind a "
+              "sleep)", flush=True)
 
     # ec_scalar_mul over 255 bits, inputs from this run's FK20: at 64 lanes
     # (an EC-FFT stage's width) against the plain ladder, on bank points with

@@ -146,7 +146,7 @@ def _kernel_name(mangled: str) -> str:
                 break
             cand = mangled[j:j + int(mangled[i:j])]
             if cand.endswith("_kernel") and cand[:1].isalpha() and len(cand) == int(mangled[i:j]):
-                args = re.findall(r"Li(\d+)E", mangled[j + int(mangled[i:j]):])
+                args = re.findall(r"L[ib](\d+)E", mangled[j + int(mangled[i:j]):])
                 return cand + (f"<{', '.join(args)}>" if args else "")
     return mangled
 
@@ -231,8 +231,8 @@ KERNELS = {
         Kernel("miller_loop", "miller_loop", "ctt_miller_loop", [P] * 6 + [I]),
         Kernel("final_exp", "final_exp", "ctt_final_exp", [P] * 3 + [I]),
         Kernel("ntt_bfly", "ntt_kernels", "ctt_ntt_bfly", [I, P, P, P, P, I, I, I, I]),
-        Kernel("ntt_stages", "ntt_kernels", "ctt_ntt_stages", [I, P, P, P, P, P, I, I, I, I, I]),
-        Kernel("ntt_twm", "ntt_kernels", "ctt_ntt_twm", [I, P, P, P, P, I]),
+        Kernel("ntt_stages", "ntt_kernels", "ctt_ntt_stages",
+               [I, P, P, P, P, P, P, I, P, I] + [I] * 6),
     )
 }
 

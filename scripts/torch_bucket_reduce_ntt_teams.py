@@ -22,12 +22,14 @@ latency in a lone thread (the chain kernel of
 scripts/torch_scalar_mul_teams.py, built beside).
 
 K3′. Times ntt_stages, one launch a pass, at tiles of 1, 2, 4 and 8 lanes
-(where the lanes allow), against the parent's route (the gather, then one
-ntt_bfly launch a stage), at every pass the PeerDAS paths run (recorded from
-compute_cells, the FK20 NTT, the cell iNTT and a coset transform), each
-exact against the port's NTTDomain pass; CUDA events per call, and each
-route's device time a call (its calls queued behind a sleeping kernel, so
-the events time the device and not the host).
+(where the lanes allow), against the per-stage route (the gather, then one
+ntt_bfly launch a stage, the pass's factors as K1 products and its
+transposed store as a copy around them), at every pass the PeerDAS paths
+run, with its factors (recorded from compute_cells, the FK20 NTT, the cell
+iNTT and a coset transform), each exact against the port's NTTDomain pass;
+CUDA events per call, and each route's device time a call (its calls
+queued behind a sleeping kernel, so the events time the device and not
+the host).
 
 Prints ptxas's registers and spills of every kernel built. Exits non-zero
 if a build fails or a variant differs (its entry says DIFFERS). Needs the
@@ -308,7 +310,8 @@ def bucket_streams(ctx, dev):
 
 
 def ntt_passes(ctx, dev):
-    """{(batch, ns, lanes, stages): (y, tw, brp)} of every ntt_stages call
+    """{(batch, ns, lanes, stages, load factor, store factor, transposed):
+    (y, tw, brp, keywords)} of every ntt_stages call
     the PeerDAS paths make, recorded from compute_cells, the FK20 NTT over
     (64, 128), the cell iNTT over (128, 64) and a coset transform of 8,192."""
     from constantine_tpu_torch.ops import ntt as ntt_mod
@@ -328,8 +331,10 @@ def ntt_passes(ctx, dev):
              lambda: d13.coset_ntt(elems(8192), 7))
     out = {}
     for fn in calls:
-        for F, y, tw, brp, stages in record_calls(ntt_mod, "ntt_stages", fn):
-            out.setdefault((*y.shape[:3], stages), (y, tw, brp))
+        for (F, y, tw, brp, stages), kw in record_calls(ntt_mod, "ntt_stages", fn, True):
+            key = (*y.shape[:3], stages, *(kw.get(k) is not None for k in ("in_fac", "out_fac")),
+                   kw.get("transposed", False))
+            out.setdefault(key, (y, tw, brp, kw))
     return out
 
 
@@ -380,26 +385,35 @@ def main():
               "kernel: " + ", ".join(row), flush=True)
     fr = ctx.fr
     fr_mod = ctypes.c_void_p(fr.mod_words.ctypes.data)
-    for (B, ns, lanes, stages), (y, tw, brp) in ntt_passes(ctx, dev).items():
-        port = ntt_stages(fr, y, tw, brp, stages)
-        out = torch.empty_like(y)
+    for (B, ns, lanes, stages, *opts), (y, tw, brp, kw) in ntt_passes(ctx, dev).items():
+        port = ntt_stages(fr, y, tw, brp, stages, **kw)
+        out = torch.empty_like(port)
+        fi, fo, tr = kw.get("in_fac"), kw.get("out_fac"), kw.get("transposed", False)
 
         def stages_at(cols):
             """The pass over tiles of `cols` lanes (the port's wrapper takes
             tile_cols(lanes))."""
-            build.KERNELS["ntt_stages"](dev, fr.NL, fr_mod, *map(build.ptr, (y, out, tw, brp)),
-                                        B, ns, lanes, stages, cols)
+            build.KERNELS["ntt_stages"](
+                dev, fr.NL, fr_mod, *map(build.ptr, (y, out, tw, brp)),
+                ctypes.c_void_p(None if fi is None else fi.data_ptr()),
+                1 if fi is None else fi.shape[0],
+                ctypes.c_void_p(None if fo is None else fo.data_ptr()),
+                1 if fo is None else fo.shape[0], int(tr), B, ns, lanes, stages, cols)
             return out
 
+        def times(z, f):
+            return z if f is None else fr.mul(z, f if f.shape[0] == 1 else
+                                              f.reshape(z.shape[1:]))
+
         def per_stage():
-            z = y.index_select(1, brp)
+            z = times(y, fi).index_select(1, brp)
             for s in range(stages):
                 ntt_bfly(fr, z, tw[(1 << s) - 1:(2 << s) - 1], 1 << s, out=z)
-            return z
+            return times(z.transpose(1, 2).contiguous() if tr else z, fo)
 
         same = torch.equal(per_stage(), port)
         ok &= same
-        row = [f"per-stage route (the parent's: gather + {stages} ntt_bfly) "
+        row = [f"per-stage route (gather + {stages} ntt_bfly, factors as K1) "
                f"{events_ms(per_stage, 50):.4f}" + ("" if same else " DIFFERS")]
         dev_ps = device_ms(torch, per_stage, 20)
         devs = ["per-stage " + ("not measured" if dev_ps is None else f"{dev_ps:.4f}")]
@@ -414,7 +428,8 @@ def main():
                        + ("" if same else " DIFFERS"))
             dk = device_ms(torch, fn, 20)
             devs.append(f"{cols} lanes " + ("not measured" if dk is None else f"{dk:.4f}"))
-        print(f"ntt pass (batch, ns, lanes) = ({B}, {ns}, {lanes}), {stages} stages: ms a call "
+        print(f"ntt pass (batch, ns, lanes) = ({B}, {ns}, {lanes}), {stages} stages, "
+              f"(load factor, store factor, transposed) = {tuple(opts)}: ms a call "
               "(CUDA events), each against the port's pass: " + ", ".join(row)
               + "; device ms a call (CUDA events, calls queued behind a sleep): "
               + ", ".join(devs), flush=True)

@@ -10,7 +10,7 @@ compute_cells (two four-step transforms), verify_cell_kzg_proof_batch of
 the blob's 128 cells (K6 twice, the cell iNTT) and
 recover_cells_and_kzg_proofs from every other cell (the four-step, coset
 and FK20 transforms). Each call ends synchronised; prints the median and
-the quartiles in ms, and the K3′ and K6 launches a call. chip_smoke.py
+the quartiles in ms, and the K3′, K1 and K6 launches a call. chip_smoke.py
 times the same calls 3-5 times, where host noise of 10-40% hides a change
 of a few tenths of a ms; run this script from two checkouts in turns
 (parent, change, change, parent) to compare them on one card.
@@ -31,7 +31,7 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import dense_blob  # noqa: E402
 from constantine_tpu_torch import build  # noqa: E402
 
-KERNELS = ("bucket_reduce", "ntt_bfly", "ntt_stages", "ntt_twm")
+KERNELS = ("bucket_reduce", "ntt_bfly", "ntt_stages", "mont_mul")
 
 
 def main():

@@ -26,9 +26,10 @@ from constantine_tpu_torch import convert
 from constantine_tpu_torch.named.precompute import get_curve
 from constantine_tpu_torch.ops import limbs as lb
 from constantine_tpu_torch.ops.cuda_field import mont_mul_plain
-from constantine_tpu_torch.ops.cuda_ntt import ntt_bfly, ntt_bfly_plain, ntt_twm
+from constantine_tpu_torch.ops.cuda_ntt import (ntt_bfly, ntt_bfly_plain, ntt_stages,
+                                                ntt_stages_plain)
 from constantine_tpu_torch.ops.ec_fft import ECFFTDomain
-from constantine_tpu_torch.ops.ntt import get_domain
+from constantine_tpu_torch.ops.ntt import bit_reversal_perm, get_domain
 from constantine_tpu_torch.utils import refmath as rm
 
 torch.set_num_threads(1)
@@ -144,22 +145,22 @@ def test_bfly_stage_plain_matches_reference_formula(env, shape):
     assert ntt_bfly(ctx.fr, out, tw, h, out=out) is out and torch.equal(out, got)
 
 
-def test_twm_plain_is_the_montgomery_product(env):
-    _, ctx = env
-    x, t = _fr_elems(ctx.fr, (64,), 1), _fr_elems(ctx.fr, (64,), 2)
-    got = ntt_twm(ctx.fr, x, t)
-    assert ctx.fr.decode(got) == [a * b % ctx.r for a, b in zip(ctx.fr.decode(x),
-                                                                ctx.fr.decode(t))]
-
-
 def test_stage_wrappers_reject_bad_input(env):
     _, ctx = env
     x, tw = _stage_inputs(ctx, (1, 16, 1, 4), 3)
     for args in ((x[0], tw, 4), (x, tw, 3), (x, tw, 16), (x, tw[:2], 4)):
         with pytest.raises(ValueError):
             ntt_bfly(ctx.fr, *args)
-    with pytest.raises(ValueError):
-        ntt_twm(ctx.fr, x.reshape(16, -1), tw)
+    # the pass's store factor (the four-step's twiddle matrix): a table of
+    # 1 or ns * lanes rows on the pass's device
+    y, fac = x.reshape(1, 16, 1, -1), x.reshape(16, -1)
+    dom = get_domain("BLS12_381", 4)
+    tw, brp = dom.packed_twiddles(False, "cpu"), dom._brp_index(16, "cpu")
+    for bad in (fac[:8], fac[:, :4], fac.reshape(2, 8, -1), fac.to(torch.int64),
+                torch.stack([fac, fac], 1)[:, 0], fac.to("meta")):
+        for kw in ({"out_fac": bad}, {"in_fac": bad}):
+            with pytest.raises(ValueError):
+                ntt_stages(ctx.fr, y, tw, brp, 4, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -176,7 +177,8 @@ def host_lib(tmp_path_factory):
 @pytest.mark.parametrize("shape", STAGES)
 def test_kernel_code_matches_plain(host_lib, env, shape):
     """ntt.cuh's per-butterfly code, looped on the host, against the plain
-    stage, in place; and its twiddle-matrix product against K1's plain."""
+    stage, in place; and the pass's store factor (the twiddle-matrix
+    product) against K1's plain."""
     _, ctx = env
     F = ctx.fr
     B, ns, lanes, h = shape
@@ -189,14 +191,26 @@ def test_kernel_code_matches_plain(host_lib, env, shape):
     fn.restype = None
     fn(mod.ctypes.data, buf.ctypes.data, buf.ctypes.data, twn.ctypes.data, B, ns, lanes, h)
     assert torch.equal(lb.to_tensor(buf), ntt_bfly_plain(F, x, tw, h))
-    a = np.array(lb.to_numpy(x.reshape(-1, F.NL)))
-    b = np.ascontiguousarray(a[::-1])
-    out = np.zeros_like(a)
-    fn = host_lib.ctt_host_ntt_twm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    # the twiddle-matrix product as the pass's store factor: ntt_stages'
+    # host pass over every stage, a factor a destination element, against
+    # K1's plain product after the plain pass
+    stages = ns.bit_length() - 1
+    fac = _fr_elems(F, (ns * lanes,), 11 * sum(shape))
+    tws = np.ascontiguousarray(lb.to_numpy(get_domain("BLS12_381", stages)
+                                           .packed_twiddles(False, "cpu")))
+    brp = np.ascontiguousarray(bit_reversal_perm(ns))
+    fn = host_lib.ctt_host_ntt_stages
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9 + [
+        ctypes.c_uint32]
     fn.restype = None
-    fn(mod.ctypes.data, a.ctypes.data, b.ctypes.data, out.ctypes.data, a.shape[0])
-    assert torch.equal(lb.to_tensor(out), mont_mul_plain(lb.to_tensor(a), lb.to_tensor(b), F))
+    xs = np.ascontiguousarray(lb.to_numpy(x))
+    fs = np.ascontiguousarray(lb.to_numpy(fac))
+    out = np.zeros_like(xs)
+    fn(mod.ctypes.data, xs.ctypes.data, out.ctypes.data, tws.ctypes.data, brp.ctypes.data, None,
+       1, fs.ctypes.data, fs.shape[0], 0, B, ns, lanes, stages, 1, 0, 0, 0)
+    plain = ntt_stages_plain(F, x, lb.to_tensor(tws), torch.as_tensor(brp), stages)
+    assert torch.equal(lb.to_tensor(out), mont_mul_plain(plain, fac.reshape(1, ns, lanes, F.NL)
+                                                         .expand_as(plain), F))
 
 
 # -- G1 scalar multiplication and the EC-FFT --------------------------------------------

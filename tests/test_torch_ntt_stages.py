@@ -11,11 +11,14 @@ filled with a sentinel and the output too, so a word read before it is
 written, or never stored, shows. Shapes: the four-step's column and row
 passes (4096: (1, 64, 64); 8192: (1, 64, 128) and (1, 128, 64)), the
 batched radix-2 passes (FK20's (64, 128, 1), the cell iNTT's (128, 64, 1)),
-the coset transform's first 12 of 13 stages at 8192, tiles that split the
-lanes, and a pass of fewer stages than ns has. Whole transforms made of
+the first 12 of 13 stages of a radix-2 transform of 8192, tiles that split
+the lanes, and a pass of fewer stages than ns has. Whole transforms made of
 host passes (and ntt_bfly for a stage left over) are held against the JAX
 package's at small n, forward and inverse, with 0, 1 and r - 1 among the
-inputs, and against the port's four-step at n = 1024.
+inputs, and the two fused host passes of the four-step against the port's
+at n = 1024. The pass plan: a four-step or coset transform is two
+ntt_stages launches and nothing else. The pass's factors and transposed
+store are held in tests/test_torch_ntt_fused.py.
 """
 
 import ctypes
@@ -31,11 +34,9 @@ import torch
 from constantine_tpu.ops.ntt import get_domain as jax_get_domain
 from constantine_tpu_torch import convert
 from constantine_tpu_torch.named.precompute import get_curve
-from constantine_tpu_torch.ops import cuda_ntt
 from constantine_tpu_torch.ops import limbs as lb
 from constantine_tpu_torch.ops import ntt as ntt_mod
-from constantine_tpu_torch.ops.cuda_ntt import (ntt_bfly_plain, ntt_stages, ntt_stages_plain,
-                                                pass_stages, tile_cols)
+from constantine_tpu_torch.ops.cuda_ntt import ntt_stages, ntt_stages_plain, pass_stages, tile_cols
 from constantine_tpu_torch.ops.ntt import bit_reversal_perm, get_domain
 
 torch.set_num_threads(1)
@@ -60,7 +61,7 @@ def host_lib(tmp_path_factory):
     subprocess.run([gxx, "-O2", "-std=c++17", "-Wno-unknown-pragmas", "-shared", "-fPIC",
                     "-o", str(out), str(CSRC / "ntt_host.cpp")], check=True, timeout=120)
     lib = ctypes.CDLL(str(out))
-    lib.ctt_host_ntt_stages.argtypes = [P_] * 5 + [I_] * 7 + [ctypes.c_uint32]
+    lib.ctt_host_ntt_stages.argtypes = [P_] * 6 + [I_, P_] + [I_] * 9 + [ctypes.c_uint32]
     lib.ctt_host_ntt_stages.restype = None
     return lib
 
@@ -74,18 +75,25 @@ def _fr_elems(F, shape, seed):
     return F.encode(xs).reshape(tuple(shape) + (F.NL,))
 
 
-def host_pass(lib, F, y, tw, brp, stages, cols=None, nthr=0, reverse=False):
+def host_pass(lib, F, y, tw, brp, stages, cols=None, nthr=0, reverse=False, in_fac=None,
+              out_fac=None, transposed=False):
     """ntt_stages' pass on the host into a sentinel-filled output."""
     B, ns, lanes, NL = y.shape
     cols = tile_cols(lanes) if cols is None else cols
     x = np.ascontiguousarray(lb.to_numpy(y))
-    out = np.full_like(x, SENTINEL)
+    out = np.full((B, lanes, ns, NL) if transposed else x.shape, SENTINEL, dtype=x.dtype)
     t = np.ascontiguousarray(lb.to_numpy(tw))
     b = np.ascontiguousarray(brp.numpy().astype(np.int64))
     mod = np.ascontiguousarray(F.mod_words)
+    facs = [None if f is None else np.ascontiguousarray(lb.to_numpy(f))
+            for f in (in_fac, out_fac)]
     lib.ctt_host_ntt_stages(mod.ctypes.data, x.ctypes.data, out.ctypes.data, t.ctypes.data,
-                            b.ctypes.data, B, ns, lanes, stages, cols, nthr, int(reverse),
-                            SENTINEL)
+                            b.ctypes.data,
+                            None if facs[0] is None else facs[0].ctypes.data,
+                            1 if facs[0] is None else facs[0].shape[0],
+                            None if facs[1] is None else facs[1].ctypes.data,
+                            1 if facs[1] is None else facs[1].shape[0], int(transposed),
+                            B, ns, lanes, stages, cols, nthr, int(reverse), SENTINEL)
     assert not (out == SENTINEL).all(-1).any(), "an element was never stored"
     return lb.to_tensor(out)
 
@@ -123,66 +131,102 @@ def test_host_pass_any_thread_count(fr, host_lib, nthr):
                        ntt_stages_plain(fr, y, tw, brp, 5))
 
 
-def _host_transform(lib, F, dom, y, inverse):
-    """NTTDomain._stages with the host pass in place of ntt_stages."""
-    ns, L = y.shape[1], y.shape[1].bit_length() - 1
-    tw = dom.packed_twiddles(inverse, "cpu")
-    k = pass_stages(ns, y.shape[2], F.NL)
-    y = host_pass(lib, F, y, tw, dom._brp_index(ns, "cpu"), k)
-    for s in range(k, L):
-        y = ntt_bfly_plain(F, y, tw[(1 << s) - 1:(2 << s) - 1], 1 << s)
-    return y
+def _host_stages(lib):
+    """ntt_stages with the host pass in its place."""
+    def run(F, y, tw, brp, stages, *, in_fac=None, out_fac=None, transposed=False):
+        return host_pass(lib, F, y, tw, brp, stages, in_fac=in_fac, out_fac=out_fac,
+                         transposed=transposed, reverse=True)
+    return run
 
 
 @pytest.mark.parametrize("log_n", [1, 3, 5, 6])
-def test_host_transform_matches_reference(fr, host_lib, log_n):
-    """Batched radix-2 transforms of host passes against the JAX package's
-    NTTDomain, forward and inverse."""
+def test_host_transform_matches_reference(fr, host_lib, log_n, monkeypatch):
+    """Batched radix-2 transforms of host passes (1/n on the inverse's
+    store) against the JAX package's NTTDomain, forward and inverse."""
+    monkeypatch.setattr(ntt_mod, "ntt_stages", _host_stages(host_lib))
     n = 1 << log_n
     x = _fr_elems(fr, (3, n), log_n)
     dom, jdom = get_domain("BLS12_381", log_n), jax_get_domain("BLS12_381", log_n)
     xj = jnp.asarray(convert.to_reference(x))
     for inverse, want in ((False, jdom.ntt(xj)), (True, jdom.intt(xj))):
-        got = _host_transform(host_lib, fr, dom, x.reshape(3, n, 1, fr.NL), inverse)
-        got = dom._scale(got.reshape(3, n, fr.NL), inverse)
+        got = dom.intt(x) if inverse else dom.ntt(x)
         assert torch.equal(got, convert.from_reference(np.asarray(want)))
 
 
-def test_host_four_step_matches_port(fr, host_lib):
-    """The four-step at n = 1024 from host passes equals the port's."""
+def test_host_four_step_matches_port(fr, host_lib, monkeypatch):
+    """The four-step at n = 1024 from its two fused host passes (the column
+    pass's twiddle matrix and transposed store, the row pass's 1/n) equals
+    the port's plain route."""
     dom = get_domain("BLS12_381", 10)
     x = _fr_elems(fr, (1024,), 10)
+    want = [dom.ntt(x), dom.intt(x)]
+    monkeypatch.setattr(ntt_mod, "ntt_stages", _host_stages(host_lib))
     for inverse in (False, True):
-        n1, n2, twm = dom._four_step_tables(inverse, "cpu")
-        y = _host_transform(host_lib, fr, dom, x.reshape(1, n1, n2, fr.NL), inverse)
-        y = cuda_ntt.ntt_twm(fr, y.reshape(-1, fr.NL), twm)
-        y = y.reshape(n1, n2, fr.NL).transpose(0, 1).contiguous().reshape(1, n2, n1, fr.NL)
-        y = dom._scale(_host_transform(host_lib, fr, dom, y, inverse).reshape(-1, fr.NL),
-                       inverse)
-        assert torch.equal(y, dom.intt(x) if inverse else dom.ntt(x))
+        assert torch.equal(dom.intt(x) if inverse else dom.ntt(x), want[inverse])
+
+
+def _plan(monkeypatch, fr, fn):
+    """The kernel calls fn makes through ops/ntt.py: ntt_stages (with its
+    factors and store), ntt_bfly and K1 products (Field.mul, Field.prod),
+    each stubbed to return zeros of its output's shape."""
+    calls = []
+
+    def stages(F, y, tw, brp, stages, *, in_fac=None, out_fac=None, transposed=False):
+        calls.append(("ntt_stages", in_fac is not None, out_fac is not None, transposed))
+        B, ns, lanes, NL = y.shape
+        return y.new_zeros((B, lanes, ns, NL) if transposed else y.shape)
+
+    def k1(*factors, **kw):
+        calls.append(("mont_mul",))
+        return torch.zeros(torch.broadcast_shapes(*(f.shape for f in factors)),
+                           dtype=torch.int32)
+
+    monkeypatch.setattr(ntt_mod, "ntt_stages", stages)
+    monkeypatch.setattr(ntt_mod, "ntt_bfly", lambda F, y, *a, **k: (calls.append(("ntt_bfly",)),
+                                                                      y)[1])
+    monkeypatch.setattr(fr, "mul", k1)
+    monkeypatch.setattr(fr, "prod", k1)
+    fn()
+    return calls
 
 
 def test_pass_plan_launches(fr, monkeypatch):
-    """A four-step transform is two ntt_stages launches, a batched radix-2
-    transform one, and the 8192 coset transform one and an ntt_bfly: paths
-    i / j / k / l's 4 / 5 / 1 / 13 stage launches a call."""
+    """A four-step transform is two ntt_stages launches and nothing else:
+    the column pass (twiddle matrix, transposed) and the row pass (1/n on
+    the inverse); a coset transform of 8192 the same two, the shift on the
+    column pass's load (forward) or the row pass's store (inverse); a
+    batched radix-2 transform one pass, 1/n on its store; a radix-2
+    transform too long for a tile one pass, ntt_bfly for the stages left,
+    and a K1 product for the inverse's factor; above the four-step's tile
+    limit (2^22 at 8 limbs) a 2-D input takes the radix-2 route."""
     assert [pass_stages(ns, lanes, fr.NL) for ns, lanes in
             ((64, 64), (64, 128), (128, 64), (128, 1), (64, 1), (8192, 1))] == [6, 6, 7, 7, 6, 12]
-    calls = []
-    for name in ("ntt_stages", "ntt_bfly"):
-        orig = getattr(ntt_mod, name)
-        monkeypatch.setattr(ntt_mod, name,
-                            lambda *a, _n=name, _f=orig, **k: (calls.append(_n), _f(*a, **k))[1])
     dom = get_domain("BLS12_381", 13)
     x = _fr_elems(fr, (8192,), 13)
-    dom.ntt(x)
-    assert calls == ["ntt_stages"] * 2
-    calls.clear()
-    dom.coset_ntt(x, 7)
-    assert calls == ["ntt_stages", "ntt_bfly"]
-    calls.clear()
-    get_domain("BLS12_381", 7).ntt(_fr_elems(fr, (64, 128), 7))
-    assert calls == ["ntt_stages"]
+    col, row = ("ntt_stages", False, True, True), ("ntt_stages", False, False, False)
+    row_f = ("ntt_stages", False, True, False)
+    col_s = ("ntt_stages", True, True, True)
+    for fn, want in ((lambda: dom.ntt(x), [col, row]), (lambda: dom.intt(x), [col, row_f]),
+                     (lambda: dom.coset_ntt(x, 7), [col_s, row]),
+                     (lambda: dom.coset_intt(x, 7), [col, row_f])):
+        assert _plan(monkeypatch, fr, fn) == want
+    xb = x.reshape(1, 8192, fr.NL)
+    left = [("ntt_stages", False, False, False), ("ntt_bfly",)]
+    assert _plan(monkeypatch, fr, lambda: dom.ntt(xb)) == left
+    assert _plan(monkeypatch, fr, lambda: dom.intt(xb)) == left + [("mont_mul",)]
+    assert _plan(monkeypatch, fr, lambda: dom.coset_ntt(xb, 7)) == [
+        ("ntt_stages", True, False, False), ("ntt_bfly",)]
+    assert _plan(monkeypatch, fr, lambda: dom.coset_intt(xb, 7)) == left + [("mont_mul",)]
+    cells = _fr_elems(fr, (128, 64), 6)
+    d6 = get_domain("BLS12_381", 6)
+    assert _plan(monkeypatch, fr, lambda: d6.ntt(cells)) == [("ntt_stages", False, False, False)]
+    assert _plan(monkeypatch, fr, lambda: d6.intt(cells)) == [("ntt_stages", False, True, False)]
+    assert ntt_mod.four_step_split(22, fr.NL) == (2048, 2048)
+    assert ntt_mod.four_step_split(23, fr.NL) is None
+    for log_n, four in ((16, True), (22, True), (23, False), (24, False)):
+        big = object.__new__(ntt_mod.NTTDomain)         # the route only: no tables
+        big.F, big.log_n, big.n = fr, log_n, 1 << log_n
+        assert big._use_four_step(torch.empty(0, fr.NL)) == four
 
 
 def test_pass_wrapper_rejects_bad_input(fr):
