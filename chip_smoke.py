@@ -12,7 +12,7 @@
    f = 1 and on Miller outputs; K3' ntt_bfly and ntt_stages, the latter
    with every combination of its load factor, store factor (periods 1 and
    n) and transposed store, with 0, 1, r - 1 lanes and w = 1).
-2. Thirteen paths, each driven with every launch count set to 0 just before
+2. Seventeen paths, each driven with every launch count set to 0 just before
    it and read just after; each must have launched every kernel it runs:
    a. fixed-base commit: loads the EIP-4844 trusted setup, builds the KZG
       context (the fixed-base tables, on the card, one ec_double_k launch
@@ -65,6 +65,25 @@
       four-step forward and inverse (two ntt_stages launches each) held
       exactly against the radix-2 route through a batch of one (a pass of
       12 stages, 4 ntt_bfly launches) and against each other; 5 timed each.
+   n. sign 64 (Ethereum BLS, models/bls_signatures.py): derive_pubkeys and
+      sign of the golden pairs byte-equal to tests/data/torch_bls_golden.json
+      (made by the JAX package), 64 seeded keys and 32-byte messages, 8 of
+      them equal to the host oracle (tests/bls_oracle.py), sk = 0 or r
+      None; the GLS-4 route (the secret keys' digit decomposition, psi, the
+      ladder and its adds) rerun under torch.cuda.set_sync_debug_mode("error")
+      (no host read) and equal to sign; 3 timed;
+   o. verify 64: those triples True; an altered message, two swapped
+      signatures, a bad flag, x >= p, a signature outside G2 and a pubkey at
+      infinity False in their lanes only; 3 timed;
+   p. the sync committee: aggregate_signatures of 512 signatures of one
+      message (equal to the host's) and fast_aggregate_verify over the 512
+      pubkeys True; another message and a pubkey at infinity False; 3 timed;
+   q. a block of 128 attestations over distinct messages: aggregate_verify
+      True, a changed message False; batch_verify with a fixed blinding True,
+      a replaced signature False, with os.urandom blinding True; 3 timed.
+   Each of n-q prints a path line: latency, device busy and idle share of
+   one profiled call, and K1 / K9 / K11 / K12 / K13 / ec_scalar_mul / ec_add
+   launches a call.
    A four-step transform and a coset transform of 8,192 (forward and
    inverse) must each be two ntt_stages launches, no other kernel, and
    two allocations (the passes' outputs: no transpose copy, no K1 temp);
@@ -137,6 +156,7 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_kzg_golden.json"
 PROOF_GOLDEN = ROOT / "tests" / "data" / "torch_kzg_proof_golden.json"
 PEERDAS_GOLDEN = ROOT / "tests" / "data" / "torch_peerdas_golden.json"
+BLS_GOLDEN = ROOT / "tests" / "data" / "torch_bls_golden.json"
 INF = bytes([0xC0]) + bytes(47)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, and for the
@@ -231,7 +251,18 @@ PATH_KERNELS = {
     "verify cells": _union(PIPELINE, ("scaled_doubles", "ntt_stages"), PAIRING),
     "recover": _union(("mont_mul", "ntt_stages", "ec_add", "ec_scalar_mul"), CHAINS),
     "ntt 2^16": ("mont_mul", "ntt_stages", "ntt_bfly"),
+    # BLS signatures: the G2 and Fp2 glue is K1 products; pubkeys are
+    # ec_scalar_mul ladders, decompressed by K13; every affine conversion
+    # inverts through K9; pubkey sums are K3 adds; pairings K11 and K12
+    "sign 64": ("mont_mul", "ec_scalar_mul", "fermat_inv"),
+    "verify 64": ("mont_mul", "fermat_inv", "g1_decompress", "miller_loop", "final_exp"),
+    "sync committee 512": PAIRING,
+    "block 128": ("mont_mul", "ec_scalar_mul", "fermat_inv", "g1_decompress", "miller_loop",
+                  "final_exp"),
 }
+# the launches a BLS path line reports per call
+BLS_COUNTED = ("mont_mul", "fermat_inv", "miller_loop", "final_exp", "g1_decompress",
+               "ec_scalar_mul", "ec_add")
 
 
 def _windows(e: int):
@@ -432,12 +463,14 @@ def host_ms(torch, fn, reps):
     return out
 
 
-def device_by_kernel(torch, names, fn):
+def device_by_kernel(torch, names, fn, warm=True):
     """Device time of a call of fn by kernel (torch.profiler): a span is
     kernel k's when its name holds k + "_kernel", else "torch ops".
-    Returns ({name: (launches, us)}, wall us of the call)."""
+    Returns ({name: (launches, us)}, wall us of the call). warm: one call
+    before the profiled one."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -445,28 +478,31 @@ def device_by_kernel(torch, names, fn):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = next((k for k in names if k + "_kernel" in e.name), "torch ops")
-            span = e.time_range.end - e.time_range.start
+    # the raw trace events: prof.events() builds a Python object a span and
+    # takes minutes over the BLS paths' ~10^6 spans
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ename = e.name()
+            name = next((k for k in names if k + "_kernel" in ename), "torch ops")
             n, t = by_name.get(name, (0, 0.0))
-            by_name[name] = (n + 1, t + span)
+            by_name[name] = (n + 1, t + e.duration_ns() / 1e3)
     return by_name, wall_us
 
 
-def profile_call(torch, names, label, fn):
+def profile_call(torch, names, label, fn, warm=True):
     """Device time by kernel over one call, and the share of the call's wall
-    time the device spent idle."""
-    by_name, wall_us = device_by_kernel(torch, names, fn)
+    time the device spent idle: (busy ms, idle share), or None."""
+    by_name, wall_us = device_by_kernel(torch, names, fn, warm)
     busy_us = sum(t for _, t in by_name.values())
     if busy_us == 0:
         print(f"profile of one {label}: the profiler recorded no device time "
               "(idle share not measured)", flush=True)
-        return
+        return None
     parts = ", ".join(f"{k} {t / 1e3:.3f} ms x{n}" for k, (n, t) in
                       sorted(by_name.items(), key=lambda kv: -kv[1][1]))
     print(f"profile of one {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}; {parts}", flush=True)
+    return busy_us / 1e3, 1 - busy_us / wall_us
 
 
 def device_ms(torch, fn, reps):
@@ -535,6 +571,177 @@ def max_abs_err(lb, got, ref):
     return err
 
 
+def bls_paths(torch, np, ctx, dev, start_path, end_path, per_call):
+    """Paths n-q: Ethereum BLS signatures through the port's entry points,
+    each checked, timed (median of 3 calls, whose results are checked too)
+    and profiled once: sign and verify of 64, the 512-key sync committee, a
+    block of 128 attestations."""
+    n_sign, n_committee, n_block = 64, 512, 128
+    from constantine_tpu_torch import build
+    from constantine_tpu_torch.models import bls_signatures
+    from constantine_tpu_torch.ops.glv import get_gls4, gls4_combine, gls4_split
+    from constantine_tpu_torch.utils import refmath as rm
+    sys.path.insert(0, str(ROOT / "tests"))
+    from bls_oracle import host_pubkeys, host_sign
+
+    t_start = time.perf_counter()
+    r = ctx.r
+    inf1 = bytes([0xC0]) + bytes(47)
+    names = tuple(build.KERNELS)
+    bls = bls_signatures.get_bls("cuda")
+    golden = json.loads(BLS_GOLDEN.read_text())["pairs"]
+    gsks = [int(e["sk"], 16) for e in golden]
+    gmsgs = [bytes.fromhex(e["msg"]) for e in golden]
+    gpks = b"".join(bytes.fromhex(e["pubkey"]) for e in golden)
+    gsigs = b"".join(bytes.fromhex(e["signature"]) for e in golden)
+    rng = np.random.default_rng(2026)
+
+    def keys(n):
+        return [int.from_bytes(rng.bytes(32), "big") % (r - 1) + 1 for _ in range(n)]
+
+    def timed(fn):
+        """Three calls, each ending synchronised: (results, host ms)."""
+        out, lat = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out.append(fn())
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return out, lat
+
+    def finish(name, before, lat, what, fn):
+        end_path(name, before, len(lat))
+        prof = profile_call(torch, names, name, fn, warm=False)
+        med = statistics.median(lat)
+        busy = "not measured" if prof is None else f"{prof[0]:.3f} ms"
+        idle = "not measured" if prof is None else f"{prof[1]:.3f}"
+        calls = ", ".join(f"{k} {per_call[name][k]:g}" for k in BLS_COUNTED)
+        print(f"path {name} ({what}): latency median {med:.3f} ms over {len(lat)} (min "
+              f"{min(lat):.3f}, max {max(lat):.3f}); device busy {busy}, idle share {idle}; "
+              f"launches a call: {calls}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+              f"{time.perf_counter() - t_start:.1f} s into the BLS paths", flush=True)
+
+    # n. derive_pubkeys and sign over 64 seeded keys and 32-byte messages
+    sks64, msgs64 = keys(n_sign), [rng.bytes(32) for _ in range(n_sign)]
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    check(bls.derive_pubkeys(gsks) == gpks, "derive_pubkeys of the golden keys")
+    check(bls.sign(gsks, gmsgs) == gsigs, "sign of the golden pairs")
+    check(bls.sign([0], [b"m"]) is None and bls.sign([5, r], [b"m", b"n"]) is None,
+          "sign with sk = 0 or r is not None")
+    pks64 = bls.derive_pubkeys(sks64)
+    check(pks64[:8 * 48] == host_pubkeys(sks64[:8]), "derive_pubkeys: 8 pubkeys != host")
+    before = build.launch_counts()
+    out, lat = timed(lambda: bls.sign(sks64, msgs64))
+    sigs64 = out[0]
+    check(out[1] == out[2] == sigs64, "sign: the timed calls differ")
+    check(sigs64[:8 * 96] == host_sign(sks64[:8], msgs64[:8]), "sign: 8 signatures != host")
+    finish("sign 64", before, lat, "sign of 64 keys and messages",
+           lambda: bls.sign(sks64, msgs64))
+    # the GLS-4 route, its scalars and hashed points already on the card,
+    # may not read the device: the digit decomposition of the secret keys,
+    # psi, the ladder and the adds (a synchronising call raises in this mode)
+    g2 = ctx.g2
+    (hx, hy), _ = bls._hash(msgs64)
+    sk_limbs = ctx.scalars_to_limbs(sks64, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kk, pts = gls4_split(ctx, sk_limbs, (hx, hy))
+        acc = g2.scalar_mul(kk, g2.from_affine(pts), scalar_bits=get_gls4().mini_bits)
+        S = gls4_combine(ctx, acc, n_sign)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(bls.codec.g2_compress(g2.to_affine(S)[0]) == sigs64,
+          "the GLS-4 ladder under the sync debug mode differs from sign")
+    print("sign 64: golden pubkeys and signatures match, 8 of the 64 equal the host oracle, "
+          "sk = 0 and r give None; the GLS-4 decomposition, ladder and adds ran under "
+          f"torch.cuda.set_sync_debug_mode('error') without a host read "
+          f"({time.perf_counter() - t_start:.1f} s into the BLS paths)", flush=True)
+
+    # o. verify the 64 triples, then a batch with one fault a lane
+    # an SSWU output before cofactor clearing: on the twist, outside G2
+    outside_pt = bls.h2c.g2_map.map_to_curve(ctx.g2.F.encode([3, 4], dev)[None])
+    outside = bls.codec.g2_compress(outside_pt)
+    q_out = tuple(tuple(ctx.fp.decode(c[0].cpu())) for c in outside_pt)
+    check(rm.ec2_is_on_curve(q_out, ctx.g2_b(), -1, ctx.p)
+          and rm.ec2_mul(r, q_out, (0, 0), -1, ctx.p) is not None,
+          "the outside-G2 signature is not on the twist outside G2")
+    sig = [sigs64[96 * i:96 * i + 96] for i in range(n_sign)]
+    pk = [pks64[48 * i:48 * i + 48] for i in range(n_sign)]
+    bad_msgs, bad_sig, bad_pk = list(msgs64), list(sig), list(pk)
+    bad_msgs[5] = b"altered"
+    bad_sig[10], bad_sig[11] = sig[11], sig[10]
+    bad_sig[20] = bytes([sig[20][0] & 0x7F]) + sig[20][1:]
+    bad_sig[21] = sig[21][:48] + (ctx.p + 1).to_bytes(48, "big")
+    bad_sig[22] = outside
+    bad_pk[30] = inf1
+    want = [i not in (5, 10, 11, 20, 21, 22, 30) for i in range(n_sign)]
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    got = bls.verify(b"".join(bad_pk), bad_msgs, b"".join(bad_sig)).tolist()
+    check(got == want, f"verify 64 faults: {[i for i, w in enumerate(want) if got[i] != w]} wrong")
+    before = build.launch_counts()
+    out, lat = timed(lambda: bls.verify(pks64, msgs64, sigs64))
+    check(all(o.tolist() == [True] * n_sign for o in out), "verify 64 valid")
+    print("verify 64: all True; an altered message, two swapped signatures, a bad flag, "
+          f"x >= p, a signature outside G2 and a pubkey at infinity False in their lanes only "
+          f"({time.perf_counter() - t_start:.1f} s into the BLS paths)", flush=True)
+    finish("verify 64", before, lat, "verify of 64 triples",
+           lambda: bls.verify(pks64, msgs64, sigs64))
+
+    # p. the sync committee: 512 keys sign one message
+    sks512, msg = keys(n_committee), rng.bytes(32)
+    pks512 = bls.derive_pubkeys(sks512)
+    sigs512 = bls.sign(sks512, [msg] * n_committee)
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    t0 = time.perf_counter()
+    agg = bls.aggregate_signatures(sigs512)
+    agg_ms = (time.perf_counter() - t0) * 1e3
+    check(agg == host_sign([sum(sks512) % r], [msg]), "aggregate of 512 != host")
+    check(bls.fast_aggregate_verify(pks512, b"another", agg) is False,
+          "fast_aggregate_verify of another message")
+    check(bls.fast_aggregate_verify(pks512[:48] + inf1 + pks512[96:], msg, agg) is False,
+          "fast_aggregate_verify with a pubkey at infinity")
+    before = build.launch_counts()
+    out, lat = timed(lambda: bls.fast_aggregate_verify(pks512, msg, agg))
+    check(out == [True] * 3, "fast_aggregate_verify 512")
+    print(f"sync committee 512: aggregate_signatures ({agg_ms:.3f} ms) equals the host's; "
+          "fast_aggregate_verify True; another message and a pubkey at infinity False "
+          f"({time.perf_counter() - t_start:.1f} s into the BLS paths)", flush=True)
+    finish("sync committee 512", before, lat, "fast_aggregate_verify of 512 pubkeys",
+           lambda: bls.fast_aggregate_verify(pks512, msg, agg))
+
+    # q. a block: 128 attestations over distinct messages
+    sks128, msgs128 = keys(n_block), [rng.bytes(32) for _ in range(n_block)]
+    pks128 = bls.derive_pubkeys(sks128)
+    sigs128 = bls.sign(sks128, msgs128)
+    replaced = sigs128[:96] + bls.sign([99], [msgs128[1]]) + sigs128[192:]
+    seed = b"\x05" * 32
+    torch.cuda.reset_peak_memory_stats()
+    start_path()
+    agg = bls.aggregate_signatures(sigs128)
+    t0 = time.perf_counter()
+    check(bls.aggregate_verify(pks128, msgs128, agg) is True, "aggregate_verify 128")
+    av_ms = (time.perf_counter() - t0) * 1e3
+    check(bls.aggregate_verify(pks128, msgs128[:3] + [b"changed"] + msgs128[4:], agg) is False,
+          "aggregate_verify with a changed message")
+    check(bls.batch_verify(pks128, msgs128, replaced, secure_blinding=seed) is False,
+          "batch_verify with a replaced signature")
+    check(bls.batch_verify(pks128, msgs128, sigs128) is True,
+          "batch_verify with os.urandom blinding")
+    before = build.launch_counts()
+    out, lat = timed(lambda: bls.batch_verify(pks128, msgs128, sigs128, seed))
+    check(out == [True] * 3, "batch_verify 128")
+    print(f"block 128: aggregate_verify True ({av_ms:.3f} ms), a changed message False; "
+          "batch_verify True, a replaced signature False, os.urandom blinding True "
+          f"({time.perf_counter() - t_start:.1f} s into the BLS paths)", flush=True)
+    finish("block 128", before, lat, "batch_verify of 128 triples",
+           lambda: bls.batch_verify(pks128, msgs128, sigs128, seed))
+
+
 def main():
     try:
         import numpy as np
@@ -577,7 +784,7 @@ def main():
     except ImportError as e:
         print(f"the port is not beside this script ({e})", file=sys.stderr)
         return 2
-    for f in (GOLDEN, PROOF_GOLDEN, PEERDAS_GOLDEN):
+    for f in (GOLDEN, PROOF_GOLDEN, PEERDAS_GOLDEN, BLS_GOLDEN):
         if not f.is_file():
             print(f"missing {f}", file=sys.stderr)
             return 2
@@ -585,6 +792,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
+    t_main = time.perf_counter()
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown"
     print(card, flush=True)
     dev = torch.device("cuda", 0)
@@ -789,8 +997,8 @@ def main():
                  f"ntt_stages quick {tuple(xs.shape[:3])} stages={stages} {variant_name(kw)}")
     print("quick checks: mont_mul (Fp, Fr), ec_add, ec_double_k, flush_scan, merge_scan, "
           "bucket_reduce, scaled_doubles, chain_fwd, fermat_inv, chain_bwd_inv (Fp, Fr), "
-          "g1_decompress, miller_loop, final_exp, ntt_bfly, ntt_stages (every variant) exact",
-          flush=True)
+          "g1_decompress, miller_loop, final_exp, ntt_bfly, ntt_stages (every variant) exact "
+          f"({time.perf_counter() - t_main:.1f} s since the start)", flush=True)
 
     # ---- 2. the paths ---------------------------------------------------------------
     golden = json.loads(GOLDEN.read_text())
@@ -1160,10 +1368,14 @@ def main():
     print("check a four-step and a coset transform of 8192, forward and inverse: two "
           "ntt_stages launches and two allocations each, nothing else", flush=True)
 
+    # n-q. BLS signatures: sign 64, verify 64, the 512-key sync committee, a
+    # block of 128 attestations
+    bls_paths(torch, np, ctx, dev, start_path, end_path, per_call)
+
     for name in PATH_KERNELS:
         print(f"launches per call, {name}: {json.dumps(per_call[name])}", flush=True)
     k1_calls = {name: per_call[name]["mont_mul"] for name in PATH_KERNELS}
-    print(f"K1 (mont_mul, one launch a product chain) launches per call on paths a-l: "
+    print(f"K1 (mont_mul, one launch a product chain) launches per call on paths a-q: "
           f"{json.dumps(k1_calls)}, total {sum(k1_calls.values())}", flush=True)
     check(all(k1_calls[k] <= v for k, v in K1_LAUNCHES.items()),
           f"K1 launches per call {k1_calls}, above {K1_LAUNCHES}")

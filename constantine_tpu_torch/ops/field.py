@@ -47,6 +47,9 @@ class Field:
         nprime16 = lb.unpack16(lb.int_to_limbs(nprime, NL)).astype(np.int64)
         self._host = {
             "p32": self.p.astype(np.int64),
+            # ~p + 1 limb by limb: s + p_comp through limbs.add_limbs is s - p
+            "p_comp": np.concatenate([[lb.LIMB_MASK - int(self.p[0]) + 1],
+                                      lb.LIMB_MASK - self.p[1:].astype(np.int64)]).astype(np.int64),
             "p16": p16,
             "one": self.one.view(np.int32),
             "one_canon": lb.int_to_limbs(1, NL).view(np.int32),      # from_mont's factor
@@ -115,6 +118,33 @@ class Field:
     def neg(self, a):
         p = self.consts(a.device)["p32"]
         d, _ = lb.sub_borrow(p, lb.widen(a))
+        return torch.where(lb.is_zero(a)[..., None], a, lb.narrow(d))
+
+    # add, sub and neg end their carry loop on a host read of the card (a
+    # sync, and a branch on the data): the cheapest on the public glue of
+    # the KZG paths. The _ct forms resolve carries with a fixed sequence of
+    # torch ops (limbs.ripple, ~30 a call), for the towers' G2 ladders over
+    # secret scalars; the values are the same.
+
+    def add_ct(self, a, b):
+        """a + b mod p without a host read: the sum, then the sum minus p
+        kept unless it borrowed."""
+        c = self.consts(a.device)
+        s, _ = lb.add_limbs(lb.widen(a), lb.widen(b))      # a + b < 2p < R
+        d, ge = lb.add_limbs(s, c["p_comp"])               # s - p
+        return lb.narrow(torch.where(ge[..., None] == 1, d, s))
+
+    def sub_ct(self, a, b):
+        """a - b mod p without a host read: the difference, plus p where it
+        borrowed."""
+        c = self.consts(a.device)
+        d, ge = lb.sub_limbs(lb.widen(a), lb.widen(b))
+        dp, _ = lb.add_limbs(d, c["p32"])
+        return lb.narrow(torch.where(ge[..., None] == 1, d, dp))
+
+    def neg_ct(self, a):
+        c = self.consts(a.device)
+        d, _ = lb.sub_limbs(c["p32"], lb.widen(a))
         return torch.where(lb.is_zero(a)[..., None], a, lb.narrow(d))
 
     def double(self, a):

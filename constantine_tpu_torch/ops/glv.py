@@ -1,7 +1,9 @@
-"""GLV endomorphism scalar decomposition for G1 (a = 0 curves).
+"""GLV endomorphism scalar decomposition for G1 (a = 0 curves), and GLS-4
+for BLS12 G2.
 
-Counterpart of the degree-2 part of ``constantine_tpu/ops/glv.py`` (``GLV``,
-``get_glv``; GLS-4 and ``scalar_mul_glv`` are not ported). phi(x, y) =
+Counterpart of ``constantine_tpu/ops/glv.py``: ``GLV``, ``get_glv``,
+``GLS4``, ``get_gls4`` and ``scalar_mul_gls4_g2`` (``scalar_mul_glv`` and
+``msm_gls4_g2`` are not ported). phi(x, y) =
 (beta*x, y) equals [lambda]P, with beta and lambda cube roots of unity in Fp
 and Fr. The constructor finds them, the Gauss-reduced lattice basis and the
 Babai rounding constants with host ints, as the reference does.
@@ -11,8 +13,12 @@ Babai rounding constants with host ints, as the reference does.
 mini-scalars are bit-identical: a Barrett product with a 2^384-scaled
 constant for the rounding, then two's complement mod 2^(16*LM) with the top
 digit masked, then magnitudes and sign masks. It is torch glue on either
-device (XLA in the reference), not a kernel; its carry loops synchronise the
-host with the card a few dozen times per call.
+device (XLA in the reference), not a kernel. GLV's scalars are public (the
+MSM's), so its carry loops end on a host read, a few dozen a call, the
+cheaper form on the online MSM of 2^16. GLS-4's are secret keys in
+``sign``, so its carries (``ct=True``) are a fixed sequence of torch ops:
+one carry round, then ``limbs.ripple``; they read nothing back to the host
+and branch on no digit.
 """
 
 from __future__ import annotations
@@ -179,10 +185,19 @@ class GLV:
 # -- 16-bit digit helpers (int64 tensors, the reference's two's complement) ---
 
 
-def _normalize(t: torch.Tensor) -> torch.Tensor:
+def _normalize(t: torch.Tensor, ct: bool = False) -> torch.Tensor:
     """Canonical digits with the final carry folded into the top digit, as
-    the reference's limbs.normalize (t non-negative)."""
-    d, carry = lb.normalize(t, DIGIT_BITS)
+    the reference's limbs.normalize (t: column sums in [0, 2^32)). With ct,
+    one carry round leaves every digit below 2^17 - 1, so ``ripple`` ends
+    the carry without a host read."""
+    if ct:
+        c = t >> DIGIT_BITS
+        y = t & DIGIT_MASK
+        y[..., 1:] += c[..., :-1]
+        d, carry = lb.ripple(y, DIGIT_BITS)
+        carry = carry + c[..., -1]
+    else:
+        d, carry = lb.normalize(t, DIGIT_BITS)
     return torch.cat([d[..., :-1], d[..., -1:] + (carry << DIGIT_BITS)[..., None]], -1)
 
 
@@ -202,22 +217,22 @@ def _mul_const_full(a: torch.Tensor, w: np.ndarray) -> torch.Tensor:
     return t
 
 
-def _mul_const_shift(a, w, shift: int, lout: int):
+def _mul_const_shift(a, w, shift: int, lout: int, ct: bool = False):
     """floor((a*w + 2^(16*shift - 1)) / 2^(16*shift)) as lout digits: the
     Barrett step."""
     t = _mul_const_full(a, w)
     t[..., shift - 1] += 1 << (DIGIT_BITS - 1)
-    out = _normalize(t)[..., shift:shift + lout]
+    out = _normalize(t, ct)[..., shift:shift + lout]
     if out.shape[-1] < lout:
         out = torch.nn.functional.pad(out, (0, lout - out.shape[-1]))
     return out
 
 
-def _mul_const_low(a, w):
+def _mul_const_low(a, w, ct: bool = False):
     """(a * w) mod 2^(16*Lw) as canonical digits (N, Lw)."""
     Lw = w.shape[0]
     t = _mul_const_full(a[..., :Lw], w)[..., :Lw + 1]
-    return _mask_top(_normalize(t)[..., :Lw])
+    return _mask_top(_normalize(t, ct)[..., :Lw])
 
 
 def _truncate_mod(a, L: int):
@@ -231,20 +246,25 @@ def _mask_top(t):
     return torch.cat([t[..., :-1], t[..., -1:] & DIGIT_MASK], -1)
 
 
-def _add_mod(a, b):
-    """(a + b) mod 2^(16*L), canonical digits."""
+def _add_mod(a, b, ct: bool = False):
+    """(a + b) mod 2^(16*L) of canonical digits."""
+    if ct:
+        return lb.ripple(a + b, DIGIT_BITS)[0]
     return lb.normalize(a + b, DIGIT_BITS)[0]
 
 
-def _sub_mod(a, b):
-    """(a - b) mod 2^(16*L), canonical digits."""
+def _sub_mod(a, b, ct: bool = False):
+    """(a - b) mod 2^(16*L) of canonical digits (with ct: a + ~b + 1)."""
+    if ct:
+        ones = lb.arange_on(a.shape[-1], a.device, 0, DIGIT_MASK, first=1)
+        return lb.ripple(a - b + ones, DIGIT_BITS)[0]
     return lb.normalize(a - b, DIGIT_BITS)[0]
 
 
-def _abs_sign(raw):
+def _abs_sign(raw, ct: bool = False):
     """Two's complement (N, LM) digits -> (magnitude digits, neg mask)."""
     neg = ((raw[..., -1] >> (DIGIT_BITS - 1)) & 1).bool()
-    return torch.where(neg[..., None], _sub_mod(torch.zeros_like(raw), raw), raw), neg
+    return torch.where(neg[..., None], _sub_mod(torch.zeros_like(raw), raw, ct), raw), neg
 
 
 def _to_limbs(d):
@@ -252,6 +272,143 @@ def _to_limbs(d):
     if d.shape[-1] % 2:
         d = torch.nn.functional.pad(d, (0, 1))
     return lb.from_digits(d)
+
+
+# -- GLS-4: the 4-dimensional split for BLS12 G2 (psi acts as [u] there) -------
+
+
+def _det3(a):
+    return (a[0][0] * (a[1][1] * a[2][2] - a[1][2] * a[2][1])
+            - a[0][1] * (a[1][0] * a[2][2] - a[1][2] * a[2][0])
+            + a[0][2] * (a[1][0] * a[2][1] - a[1][1] * a[2][0]))
+
+
+def _cofactor4(m, i: int, j: int) -> int:
+    minor = [[m[r][c] for c in range(4) if c != j] for r in range(4) if r != i]
+    return (-1) ** (i + j) * _det3(minor)
+
+
+def _det4(m) -> int:
+    return sum(m[0][j] * _cofactor4(m, 0, j) for j in range(4))
+
+
+class GLS4:
+    """k = k0 + k1 L + k2 L^2 + k3 L^3 (mod r) with L = u, the curve
+    parameter (psi(Q) = [u]Q on G2).
+
+    The reference's construction: the lattice rows (u, -1, 0, 0), (0, u,
+    -1, 0), (0, 0, u, -1), (1, 0, -1, u) annihilate (1, L, L^2, L^3) mod r
+    with determinant +-r; Babai rounding by four Barrett products with
+    2^384-scaled adjugate constants; mini-scalars as magnitudes and sign
+    masks. ``decompose`` is the reference's digit algorithm over int64 16-bit
+    digits, so the digits are bit-identical. Like the ladder after it, it
+    reads nothing back to the host (the scalars are secret keys in
+    ``sign``)."""
+
+    def __init__(self, ctx):
+        u, r = ctx.params.x_param, ctx.r
+        lam = u % r
+        Bm = [[u, -1, 0, 0], [0, u, -1, 0], [0, 0, u, -1], [1, 0, -1, u]]
+        for row in Bm:
+            if sum(c * pow(lam, i, r) for i, c in enumerate(row)) % r:
+                raise ValueError(f"{ctx.name}: a GLS-4 basis row is not in the lattice")
+        det = _det4(Bm)
+        if abs(det) != r:
+            raise ValueError(f"{ctx.name}: the GLS-4 basis does not span the lattice")
+        self.ctx = ctx
+        self.lam = lam
+        self.basis = Bm
+        # c = (k, 0, 0, 0) B^-1: c_i = k * C[i][0] / det (the adjugate)
+        w = [_cofactor4(Bm, i, 0) * (1 if det > 0 else -1) for i in range(4)]
+        B = 1 << _BARRETT_BITS
+        self.w_sign = [-1 if wi < 0 else 1 for wi in w]
+        self.w_scaled = [(abs(wi) * B + r // 2) // r for wi in w]
+        self.w_digits = [_int_to_digits(v, _num_digits(max(1, v.bit_length())))
+                         for v in self.w_scaled]
+        self.mini_bits = max(abs(x) for row in Bm for x in row).bit_length() + 3
+        self.LM = _num_digits(self.mini_bits + DIGIT_BITS)
+        Wm = 1 << (DIGIT_BITS * self.LM)
+        # k_j = [j == 0] k - sum_i c_i (s_i B[i][j])
+        self.m_consts = [[_int_to_digits((self.w_sign[i] * Bm[i][j]) % Wm, self.LM)
+                          for j in range(4)] for i in range(4)]
+        self._validate()
+
+    def _decompose_host(self, k: int):
+        cs = [(k * wv + (1 << (_BARRETT_BITS - 1))) >> _BARRETT_BITS for wv in self.w_scaled]
+        return [(k if j == 0 else 0) - sum(cs[i] * self.w_sign[i] * self.basis[i][j]
+                                           for i in range(4)) for j in range(4)]
+
+    def _validate(self):
+        rng = random.Random(0xA7C4)
+        r, lam = self.ctx.r, self.lam
+        for _ in range(64):
+            k = rng.randrange(r)
+            ks = self._decompose_host(k)
+            if (sum(ki * pow(lam, i, r) for i, ki in enumerate(ks)) - k) % r:
+                raise ValueError("GLS-4 decomposition broken")
+            if max(abs(x) for x in ks) >= 1 << self.mini_bits:
+                raise ValueError("a GLS-4 mini-scalar exceeds its bound")
+
+    def decompose(self, scalars: torch.Tensor):
+        """(N, NL) canonical int32 scalar limbs -> [(k_i (N, LM/2) int32 limb
+        magnitudes, neg_i (N,) bool)] for i = 0..3."""
+        d = lb.to_digits(scalars)
+        cs = [_mul_const_shift(d, wd, _BARRETT_DIGITS, self.LM, ct=True)
+              for wd in self.w_digits]
+        k_mod = _truncate_mod(d, self.LM)
+        outs = []
+        for j in range(4):
+            s = None
+            for i in range(4):
+                t = _mul_const_low(cs[i], self.m_consts[i][j], ct=True)
+                s = t if s is None else _add_mod(s, t, ct=True)
+            raw = _sub_mod(k_mod if j == 0 else torch.zeros_like(k_mod), s, ct=True)
+            k, neg = _abs_sign(raw, ct=True)
+            outs.append((_to_limbs(k), neg))
+        return outs
+
+
+@functools.lru_cache(maxsize=None)
+def get_gls4(curve_name: str = "BLS12_381") -> GLS4:
+    from ..named.precompute import get_curve
+    return GLS4(get_curve(curve_name))
+
+
+def _psi_affine(xy):
+    """psi on affine G2 points (the hash-to-curve endomorphism)."""
+    from ..models.hash_to_curve import get_h2c
+    return get_h2c().psi_xy(*xy)
+
+
+def gls4_split(ctx, scalars, Q_aff):
+    """The GLS-4 ladder's inputs: the decomposed scalars (4N, LM/2) and the
+    points [+-]psi^i(Q) stacked (4N, 2, NL) x 2, i = 0..3."""
+    g2 = ctx.g2
+    pts, ks, cur = [], [], Q_aff
+    for i, (ki, neg) in enumerate(get_gls4(ctx.name).decompose(scalars)):
+        pts.append(g2.aff_cneg(neg, cur))
+        ks.append(ki)
+        if i < 3:
+            cur = _psi_affine(cur)
+    return (torch.cat(ks), (torch.cat([q[0] for q in pts]), torch.cat([q[1] for q in pts])))
+
+
+def gls4_combine(ctx, acc, n: int):
+    """sum_i of the four ladders' lanes (4N -> N), constant-time adds."""
+    g2 = ctx.g2
+    part = [tuple(t[i * n:(i + 1) * n] for t in acc) for i in range(4)]
+    return g2.add(g2.add(part[0], part[1], ct=True), g2.add(part[2], part[3], ct=True),
+                  ct=True)
+
+
+def scalar_mul_gls4_g2(ctx, scalars, Q_aff):
+    """[k]Q on affine G2 points: [k]Q = sum_i [k_i] psi^i(Q), the four
+    ~67-bit ladders as one batch of 4N lanes of ``G2Group.scalar_mul``, then
+    two levels of constant-time adds (``scalarMulEndo`` m = 4)."""
+    kk, pts = gls4_split(ctx, scalars, Q_aff)
+    g2 = ctx.g2
+    acc = g2.scalar_mul(kk, g2.from_affine(pts), scalar_bits=get_gls4(ctx.name).mini_bits)
+    return gls4_combine(ctx, acc, Q_aff[0].shape[0])
 
 
 @functools.lru_cache(maxsize=None)

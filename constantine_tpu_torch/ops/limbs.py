@@ -117,8 +117,9 @@ def widen(t: torch.Tensor) -> torch.Tensor:
 
 
 def narrow(v: torch.Tensor) -> torch.Tensor:
-    """int64 limb values in [0, 2^32) -> int32 bit patterns."""
-    return (v - ((v >> 31) << 32)).to(torch.int32)
+    """int64 limb values in [0, 2^32) -> int32 bit patterns (the conversion
+    keeps the low 32 bits, two's complement)."""
+    return v.to(torch.int32)
 
 
 def to_digits(t: torch.Tensor) -> torch.Tensor:
@@ -201,6 +202,49 @@ def column_products(x: torch.Tensor, y: torch.Tensor, S: torch.Tensor) -> torch.
     for i in range(D1):               # D1 shifted rows: less work on wide ones
         out[:, i:i + yf.shape[1]] += xf[:, i:i + 1] * yf
     return out.to(torch.int64)
+
+
+_ARANGE = {}
+
+
+def arange_on(n: int, device, scale: int = 1, offset: int = 0, first: int = 0) -> torch.Tensor:
+    """scale * i + offset for i < n, plus `first` at i = 0, int64 on
+    `device`, made there (no copy from the host) and cached."""
+    key = (n, torch.device(device), scale, offset, first)
+    if key not in _ARANGE:
+        i = torch.arange(n, dtype=torch.int64, device=device)
+        _ARANGE[key] = scale * i + offset + first * (i == 0)
+    return _ARANGE[key]
+
+
+def ripple(s: torch.Tensor, bits: int = LIMB_BITS):
+    """Carry a vector of limb sums along the last axis without a host read.
+
+    s: int64 (..., n) limb sums in [0, 2^(bits+1) - 1), so each limb sends
+    at most one carry up. Limb i passes its carry-in on iff s_i = 2^bits - 1,
+    so the carry out of limb i is that of the last limb j <= i that does not
+    pass, s_j >> bits (0 if none): a running max of the key
+    2j + 2 + (s_j >> bits) (0 where the limb passes), low bit. Returns (limbs
+    in [0, 2^bits), carry out of the top limb)."""
+    mask = (1 << bits) - 1
+    base = arange_on(s.shape[-1], s.device, 2, 2)
+    key = torch.where(s == mask, 0, base + (s >> bits))
+    cout = torch.cummax(key, -1).values & 1
+    cin = torch.nn.functional.pad(cout[..., :-1], (1, 0))
+    return (s + cin) & mask, cout[..., -1]
+
+
+def add_limbs(a: torch.Tensor, b: torch.Tensor):
+    """(a + b) on int64 limb values whose limb sums stay below 2^33, no host
+    read: (limbs mod 2^(32n), carry 0/1)."""
+    return ripple(a + b)
+
+
+def sub_limbs(a: torch.Tensor, b: torch.Tensor):
+    """(a - b) on int64 32-bit limb values, no host read: a + ~b + 1 (the
+    complement limb by limb, +1 on limb 0) carried, as (limbs mod
+    2^(32n), 1 where a >= b)."""
+    return ripple(a - b + arange_on(a.shape[-1], a.device, 0, LIMB_MASK, first=1))
 
 
 def sub_borrow(a: torch.Tensor, b: torch.Tensor):

@@ -30,7 +30,9 @@ from .sqrt import pow_msb
 
 
 class PrimeLevel:
-    """Fp as the base of a tower: (..., NL) elements, a chosen multiply."""
+    """Fp as the base of a tower: (..., NL) elements, a chosen multiply, and
+    the additions that read nothing back to the host (``Field.add_ct``):
+    the tower carries the G2 ladders over secret scalars."""
 
     deg = 1
 
@@ -38,7 +40,7 @@ class PrimeLevel:
         self.F = F
         self._plain = mul is not None
         self.mul = mul if mul is not None else F.mul
-        self.add, self.sub, self.neg = F.add, F.sub, F.neg
+        self.add, self.sub, self.neg = F.add_ct, F.sub_ct, F.neg_ct
 
     def inv(self, a):
         """Inverse (0 gives 0): Field.batch_inv (K9 on CUDA tensors) for the
@@ -121,6 +123,25 @@ class ExtField:
     def square(self, a):
         return self.mul(a, a)
 
+    def pow_const(self, a, e: int, window: int = 2):
+        """a^e for a host-known e >= 0: fixed windows, most significant
+        first (the reference's ``ExtField.pow_const``). The exponent is
+        public, so a zero window skips its product; the value is the same."""
+        if e == 0:
+            return self.one(a.shape[:-2], a.device)
+        table = [None, a]
+        for _ in range(2, 1 << window):
+            table.append(self.mul(table[-1], a))
+        nwin = -(-e.bit_length() // window)
+        digits = [(e >> (window * i)) & ((1 << window) - 1) for i in range(nwin - 1, -1, -1)]
+        res = table[digits[0]]
+        for dig in digits[1:]:
+            for _ in range(window):
+                res = self.square(res)
+            if dig:
+                res = self.mul(res, table[dig])
+        return res
+
     def _stack_mul(self, lhs, rhs):
         """One base multiply over stacked operands."""
         return self.base.mul(torch.stack(lhs), torch.stack(rhs))
@@ -154,6 +175,64 @@ class QuadraticExt(ExtField):
         ninv = B.inv(B.sub(sq[0], self.nr_mul(sq[1])))
         prods = self._stack_mul([a0, a1], [ninv, ninv])
         return self.join((prods[0], B.neg(prods[1])))
+
+
+class Fp2(QuadraticExt):
+    """Fp2 = Fp[u]/(u^2 + 1) over the prime level: the same canonical values
+    as QuadraticExt with fewer field additions, which cost more torch ops
+    than a product launch. mul: schoolbook, (a0 b0 - a1 b1, a0 b1 + a1 b0);
+    square: ((a0 + a1)(a0 - a1), (2 a0) a1). Either is one stacked base
+    multiply (one K1 launch) and two field additions."""
+
+    def mul(self, a, b):
+        B = self.base
+        a0, a1 = self.split(a)
+        b0, b1 = self.split(b)
+        v = self._stack_mul([a0, a0, a1, a1], [b0, b1, b1, b0])
+        return self.join((B.sub(v[0], v[2]), B.add(v[1], v[3])))
+
+    def square(self, a):
+        B = self.base
+        a0, a1 = self.split(a)
+        s = B.add(torch.stack([a0, a0]), torch.stack([a1, a0]))       # a0 + a1, 2 a0
+        v = self._stack_mul([s[0], s[1]], [B.sub(a0, a1), a1])
+        return self.join((v[0], v[1]))
+
+    def pow_const(self, a, e: int, window: int = 2):
+        """a^e for a host-known e: the value of ``ExtField.pow_const``. An
+        exponent of p or more splits as e = e1 p + e0, and a^(e1 p) =
+        conj(a)^e1 (the Frobenius), so a^e0 conj(a)^e1 is one joint ladder
+        of half the squarings over a table of a^i conj(a)^j (its (2^w - 1)^2
+        mixed products one stacked multiply)."""
+        p = self.F.p_int
+        e1, e0 = divmod(e, p)
+        if e1 == 0 or e1 >= p:
+            return super().pow_const(a, e, window)
+        k = 1 << window
+        pw = [None, a]
+        for _ in range(2, k):
+            pw.append(self.mul(pw[-1], a))
+        cj = [None] + [self.conj(x) for x in pw[1:]]
+        pairs = [(i, j) for i in range(1, k) for j in range(1, k)]
+        mixed = self.mul(torch.stack([pw[i] for i, _ in pairs]),
+                         torch.stack([cj[j] for _, j in pairs]))
+        table = {(i, j): mixed[n] for n, (i, j) in enumerate(pairs)}
+        table.update({(i, 0): pw[i] for i in range(1, k)})
+        table.update({(0, j): cj[j] for j in range(1, k)})
+        nwin = -(-max(e0.bit_length(), e1.bit_length()) // window)
+        res = None
+        for w in range(nwin - 1, -1, -1):
+            if res is not None:
+                for _ in range(window):
+                    res = self.square(res)
+            t = table.get(((e0 >> (window * w)) & (k - 1), (e1 >> (window * w)) & (k - 1)))
+            if t is not None:
+                res = t if res is None else self.mul(res, t)
+        return res
+
+    def conj(self, a):
+        """a0 - a1 u (the Frobenius of Fp2)."""
+        return torch.stack([a[..., 0, :], self.base.neg(a[..., 1, :])], -2)
 
 
 class CubicExt(ExtField):
@@ -267,7 +346,7 @@ def _build(F, params, mul):
     if params.fp2_nonresidue != -1 or tuple(params.fp6_nonresidue) != (1, 1):
         raise NotImplementedError("the port's towers are BLS12-381's: u^2 = -1, xi = 1 + u")
     prime = PrimeLevel(F, mul)
-    fp2 = QuadraticExt(prime, prime.neg, f"Fp2[{params.name}]")
+    fp2 = Fp2(prime, prime.neg, f"Fp2[{params.name}]")
     fp6 = CubicExt(fp2, functools.partial(mul_by_xi, prime), f"Fp6[{params.name}]")
     gammas = {}
     for power in (1, 2):
