@@ -12,7 +12,7 @@
    f = 1 and on Miller outputs; K3' ntt_bfly and ntt_stages, the latter
    with every combination of its load factor, store factor (periods 1 and
    n) and transposed store, with 0, 1, r - 1 lanes and w = 1).
-2. Seventeen paths, each driven with every launch count set to 0 just before
+2. Eighteen paths, each driven with every launch count set to 0 just before
    it and read just after; each must have launched every kernel it runs:
    a. fixed-base commit: loads the EIP-4844 trusted setup, builds the KZG
       context (the fixed-base tables, on the card, one ec_double_k launch
@@ -71,19 +71,32 @@
       them equal to the host oracle (tests/bls_oracle.py), sk = 0 or r
       None; the GLS-4 route (the secret keys' digit decomposition, psi, the
       ladder and its adds) rerun under torch.cuda.set_sync_debug_mode("error")
-      (no host read) and equal to sign; 3 timed;
+      (no host read) and equal to sign; 1 timed;
    o. verify 64: those triples True; an altered message, two swapped
       signatures, a bad flag, x >= p, a signature outside G2 and a pubkey at
-      infinity False in their lanes only; 3 timed;
+      infinity False in their lanes only; 1 timed;
    p. the sync committee: aggregate_signatures of 512 signatures of one
       message (equal to the host's) and fast_aggregate_verify over the 512
-      pubkeys True; another message and a pubkey at infinity False; 3 timed;
-   q. a block of 128 attestations over distinct messages: aggregate_verify
-      True, a changed message False; batch_verify with a fixed blinding True,
-      a replaced signature False, with os.urandom blinding True; 3 timed.
+      pubkeys True; another message and a pubkey at infinity False; 1 timed;
+   q. a block of 128 attestations over distinct messages, signed by the
+      first 128 committee keys (p's pubkeys): aggregate_verify True;
+      batch_verify with a fixed blinding True, a replaced signature False,
+      with os.urandom blinding True; 1 timed.
    Each of n-q prints a path line: latency, device busy and idle share of
    one profiled call, and K1 / K9 / K11 / K12 / K13 / ec_scalar_mul / ec_add
-   launches a call.
+   launches a call; then the seconds that timing one call instead of three,
+   q's one aggregate_verify and its reuse of the committee's pubkeys save.
+   r. EIP-2537 (models/evm_precompiles.py): every entry of
+      tests/data/torch_evm_golden.json (made by the JAX package; its
+      rejections None) byte for byte; then g1add and g2add, g1msm and
+      g2msm at k = 128 (20,480 and 36,864 bytes: seeded points in G1 and G2
+      and 255-bit scalars, equal to the host oracle's sum over the 128
+      pairs) and at k = 1, the pairing check at k = 2 (a BLS signature
+      check, true and false), map_fp_to_g1 and map_fp2_to_g2 of one element
+      each, SHA-256 and RIPEMD-160: each profiled once (device busy, idle
+      share, launches a call, within EIP2537_K1 for K1), timed (a golden
+      entry's run is a timed call; one call where a call takes 0.5 s or
+      more, else the median of 3), all outputs checked.
    A four-step transform and a coset transform of 8,192 (forward and
    inverse) must each be two ntt_stages launches, no other kernel, and
    two allocations (the passes' outputs: no transpose copy, no K1 temp);
@@ -136,8 +149,14 @@
    multiplies) and their chain floor, and K13's and K7's (3 rounds a
    doubling), from fe_mul_eo's latency in a lone thread measured here, and
    K9's divsteps, batches and word operations a lane (its bound's count). Times the pairing at B = 256 (bench.py's
-   bls12381_pairing_batch256).
-4. Prints the kernels' JSON line, then the result line.
+   bls12381_pairing_batch256). Holds every kernel path r launches against
+   its plain version at the first input of each distinct shape that path
+   r's entry points hand it (recorded from them: K1's products of the G2
+   flat route, the G1 MSM's K3-K7 streams, K9, K11, K12), the seconds
+   of each kind, and path r's seconds (its calls and these checks)
+   beside those the cuts to n-q saved.
+4. Prints the seconds of each group of the above and the total, the
+   kernels' JSON line, then the result line.
 
 Any failed check exits non-zero before the result line; so does a machine
 without a CUDA card, or a directory without the port beside this script.
@@ -157,6 +176,7 @@ GOLDEN = ROOT / "tests" / "data" / "torch_kzg_golden.json"
 PROOF_GOLDEN = ROOT / "tests" / "data" / "torch_kzg_proof_golden.json"
 PEERDAS_GOLDEN = ROOT / "tests" / "data" / "torch_peerdas_golden.json"
 BLS_GOLDEN = ROOT / "tests" / "data" / "torch_bls_golden.json"
+EVM_GOLDEN = ROOT / "tests" / "data" / "torch_evm_golden.json"
 INF = bytes([0xC0]) + bytes(47)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, and for the
@@ -223,6 +243,14 @@ NO_BFLY = ("cells", "cells and proofs", "verify cells", "recover")
 K1_LAUNCHES = {"commit": 3, "online commit": 4, "batch 16": 3, "msm 2^16": 1, "prove": 12,
                "verify": 39, "verify blob": 45, "verify batch 64": 13, "cells": 2,
                "cells and proofs": 6, "verify cells": 8, "recover": 8, "ntt 2^16": 1}
+# path r's K1 launches a call at most, by call (a G2 operation's products
+# are 5-9 launches; the G1 and G2 subgroup checks' ladders most of the rest)
+EIP2537_K1 = {"g1add": 11, "g2add": 18, "g1msm k=128": 601, "g1msm k=1": 601,
+              "g2msm k=128": 793, "g2msm k=1": 856, "pairingcheck k=2 true": 882,
+              "pairingcheck k=2 false": 882, "map_fp_to_g1": 518, "map_fp2_to_g2": 1106,
+              "sha256": 0, "ripemd160": 0}
+# path r times one call where a call takes at least this many ms, else three
+EIP2537_CHEAP_MS = 500
 PAIRING = ("mont_mul", "ec_add", "fermat_inv", "g1_decompress", "miller_loop", "final_exp")
 # an FK20 call (paths j and l): 16 scalar multiplications (the Hadamard
 # product, 7 + 1 of the inverse EC-FFT, 7 of the EC-FFT), 28 butterfly adds
@@ -259,6 +287,12 @@ PATH_KERNELS = {
     "sync committee 512": PAIRING,
     "block 128": ("mont_mul", "ec_scalar_mul", "fermat_inv", "g1_decompress", "miller_loop",
                   "final_exp"),
+    # EIP-2537: the G2 flat route, the maps, the subgroup checks and the G1
+    # subgroup ladder are K1 products; the G1 adds K3, the G1 MSM the
+    # pipeline and the window combine, G1 cofactor clearing ec_scalar_mul;
+    # every affine conversion K9; the pairing check K11, K12
+    "eip2537": _union(PIPELINE, ("scaled_doubles", "ec_scalar_mul", "fermat_inv", "miller_loop",
+                                 "final_exp")),
 }
 # the launches a BLS path line reports per call
 BLS_COUNTED = ("mont_mul", "fermat_inv", "miller_loop", "final_exp", "g1_decompress",
@@ -464,26 +498,31 @@ def host_ms(torch, fn, reps):
 
 
 def device_by_kernel(torch, names, fn, warm=True):
-    """Device time of a call of fn by kernel (torch.profiler): a span is
-    kernel k's when its name holds k + "_kernel", else "torch ops".
-    Returns ({name: (launches, us)}, wall us of the call). warm: one call
-    before the profiled one."""
+    """Device time of a call of fn by kernel (torch.profiler, tracing the
+    device alone): a span is kernel k's when its name holds k + "_kernel",
+    else "torch ops". Returns ({name: (launches, us)}, wall us of the
+    call). warm: one call before the profiled one."""
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
+    by_name, kind = {}, {}
+    cuda = torch.autograd.DeviceType.CUDA
     # the raw trace events: prof.events() builds a Python object a span and
-    # takes minutes over the BLS paths' ~10^6 spans
+    # takes minutes over the BLS paths' ~10^6 spans; a span's kernel is
+    # looked up once a distinct span name
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
+        if e.device_type() == cuda:
             ename = e.name()
-            name = next((k for k in names if k + "_kernel" in ename), "torch ops")
+            name = kind.get(ename)
+            if name is None:
+                name = kind[ename] = next((k for k in names if k + "_kernel" in ename),
+                                          "torch ops")
             n, t = by_name.get(name, (0, 0.0))
             by_name[name] = (n + 1, t + e.duration_ns() / 1e3)
     return by_name, wall_us
@@ -573,9 +612,10 @@ def max_abs_err(lb, got, ref):
 
 def bls_paths(torch, np, ctx, dev, start_path, end_path, per_call):
     """Paths n-q: Ethereum BLS signatures through the port's entry points,
-    each checked, timed (median of 3 calls, whose results are checked too)
-    and profiled once: sign and verify of 64, the 512-key sync committee, a
-    block of 128 attestations."""
+    each checked, timed (one call, whose result is checked too) and profiled
+    once: sign and verify of 64, the 512-key sync committee, a block of 128
+    attestations. Returns the seconds that timing one call instead of three
+    saves: twice the timed calls' latencies."""
     n_sign, n_committee, n_block = 64, 512, 128
     from constantine_tpu_torch import build
     from constantine_tpu_torch.models import bls_signatures
@@ -599,15 +639,16 @@ def bls_paths(torch, np, ctx, dev, start_path, end_path, per_call):
     def keys(n):
         return [int.from_bytes(rng.bytes(32), "big") % (r - 1) + 1 for _ in range(n)]
 
+    saved_ms = []
+
     def timed(fn):
-        """Three calls, each ending synchronised: (results, host ms)."""
-        out, lat = [], []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            out.append(fn())
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) * 1e3)
-        return out, lat
+        """One call, ending synchronised: ([result], [host ms])."""
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        lat = [(time.perf_counter() - t0) * 1e3]
+        saved_ms.append(2 * lat[0])
+        return [out], lat
 
     def finish(name, before, lat, what, fn):
         end_path(name, before, len(lat))
@@ -635,7 +676,6 @@ def bls_paths(torch, np, ctx, dev, start_path, end_path, per_call):
     before = build.launch_counts()
     out, lat = timed(lambda: bls.sign(sks64, msgs64))
     sigs64 = out[0]
-    check(out[1] == out[2] == sigs64, "sign: the timed calls differ")
     check(sigs64[:8 * 96] == host_sign(sks64[:8], msgs64[:8]), "sign: 8 signatures != host")
     finish("sign 64", before, lat, "sign of 64 keys and messages",
            lambda: bls.sign(sks64, msgs64))
@@ -691,10 +731,15 @@ def bls_paths(torch, np, ctx, dev, start_path, end_path, per_call):
     finish("verify 64", before, lat, "verify of 64 triples",
            lambda: bls.verify(pks64, msgs64, sigs64))
 
-    # p. the sync committee: 512 keys sign one message
+    # p. the sync committee: 512 keys sign one message; q's block of 128
+    # distinct messages is signed by the first 128 of them, in the same call
     sks512, msg = keys(n_committee), rng.bytes(32)
+    msgs128 = [rng.bytes(32) for _ in range(n_block)]
+    t0 = time.perf_counter()
     pks512 = bls.derive_pubkeys(sks512)
-    sigs512 = bls.sign(sks512, [msg] * n_committee)
+    derive_ms = (time.perf_counter() - t0) * 1e3
+    both = bls.sign(sks512 + sks512[:n_block], [msg] * n_committee + msgs128)
+    sigs512, sigs128 = both[:96 * n_committee], both[96 * n_committee:]
     torch.cuda.reset_peak_memory_stats()
     start_path()
     t0 = time.perf_counter()
@@ -707,18 +752,18 @@ def bls_paths(torch, np, ctx, dev, start_path, end_path, per_call):
           "fast_aggregate_verify with a pubkey at infinity")
     before = build.launch_counts()
     out, lat = timed(lambda: bls.fast_aggregate_verify(pks512, msg, agg))
-    check(out == [True] * 3, "fast_aggregate_verify 512")
+    check(out == [True], "fast_aggregate_verify 512")
     print(f"sync committee 512: aggregate_signatures ({agg_ms:.3f} ms) equals the host's; "
           "fast_aggregate_verify True; another message and a pubkey at infinity False "
           f"({time.perf_counter() - t_start:.1f} s into the BLS paths)", flush=True)
     finish("sync committee 512", before, lat, "fast_aggregate_verify of 512 pubkeys",
            lambda: bls.fast_aggregate_verify(pks512, msg, agg))
 
-    # q. a block: 128 attestations over distinct messages
-    sks128, msgs128 = keys(n_block), [rng.bytes(32) for _ in range(n_block)]
-    pks128 = bls.derive_pubkeys(sks128)
-    sigs128 = bls.sign(sks128, msgs128)
-    replaced = sigs128[:96] + bls.sign([99], [msgs128[1]]) + sigs128[192:]
+    # q. a block: 128 attestations over distinct messages, by the first 128
+    # committee keys (their pubkeys derived once, on p); the replaced
+    # signature is attestation 2's in slot 1
+    pks128 = pks512[:48 * n_block]
+    replaced = sigs128[:96] + sigs128[192:288] + sigs128[192:]
     seed = b"\x05" * 32
     torch.cuda.reset_peak_memory_stats()
     start_path()
@@ -726,20 +771,262 @@ def bls_paths(torch, np, ctx, dev, start_path, end_path, per_call):
     t0 = time.perf_counter()
     check(bls.aggregate_verify(pks128, msgs128, agg) is True, "aggregate_verify 128")
     av_ms = (time.perf_counter() - t0) * 1e3
-    check(bls.aggregate_verify(pks128, msgs128[:3] + [b"changed"] + msgs128[4:], agg) is False,
-          "aggregate_verify with a changed message")
     check(bls.batch_verify(pks128, msgs128, replaced, secure_blinding=seed) is False,
           "batch_verify with a replaced signature")
     check(bls.batch_verify(pks128, msgs128, sigs128) is True,
           "batch_verify with os.urandom blinding")
     before = build.launch_counts()
     out, lat = timed(lambda: bls.batch_verify(pks128, msgs128, sigs128, seed))
-    check(out == [True] * 3, "batch_verify 128")
-    print(f"block 128: aggregate_verify True ({av_ms:.3f} ms), a changed message False; "
+    check(out == [True], "batch_verify 128")
+    print(f"block 128: aggregate_verify True ({av_ms:.3f} ms); "
           "batch_verify True, a replaced signature False, os.urandom blinding True "
           f"({time.perf_counter() - t_start:.1f} s into the BLS paths)", flush=True)
     finish("block 128", before, lat, "batch_verify of 128 triples",
            lambda: bls.batch_verify(pks128, msgs128, sigs128, seed))
+    one_call = sum(saved_ms) / 1e3
+    freed = one_call + (av_ms + derive_ms) / 1e3
+    print(f"paths n-q time one call each instead of three: that saves {one_call:.1f} s "
+          f"(twice the timed calls' latencies, {', '.join(f'{m / 2e3:.1f}' for m in saved_ms)} s); "
+          f"q no longer runs a second aggregate_verify (as long as the first, {av_ms / 1e3:.1f} s) "
+          f"nor derives its own 128 pubkeys (it takes the committee's; the committee's derive "
+          f"took {derive_ms / 1e3:.1f} s): {freed:.1f} s in all", flush=True)
+    return freed
+
+
+
+def eip2537_inputs(np, ctx):
+    """Path r's calldata at the EIP's widths: k = 128 (G1 point, scalar) and
+    (G2 point, scalar) pairs (20,480 and 36,864 bytes), the points [a + i d]G
+    and [a' + i d']H built on the host by additions, so their discrete logs
+    are known and the host oracle's sum over all 128 pairs is one refmath
+    multiplication of the generator by sum_i k_i (a + i d) mod r; 255-bit
+    scalars from a seed."""
+    from constantine_tpu_torch.utils import refmath as rm
+    sys.path.insert(0, str(ROOT / "tests"))
+    from bls_oracle import NR, g1_bytes, g2_bytes
+    p, r = ctx.p, ctx.r
+    rng = np.random.default_rng(2537128)
+
+    def k255():
+        return int.from_bytes(rng.bytes(32), "big") >> 1
+
+    def progression(add, mul, gen):
+        a, d = (int.from_bytes(rng.bytes(32), "big") % r for _ in range(2))
+        step, pts = mul(d, gen), [mul(a, gen)]
+        for _ in range(127):
+            pts.append(add(pts[-1], step))
+        return pts, [(a + i * d) % r for i in range(128)]
+
+    g1pts, g1logs = progression(lambda P, Q: rm.ec_add(P, Q, 0, p),
+                                lambda k, P: rm.ec_mul(k, P, 0, p), ctx.g)
+    g2pts, g2logs = progression(lambda P, Q: rm.ec2_add(P, Q, (0, 0), NR, p),
+                                lambda k, P: rm.ec2_mul(k, P, (0, 0), NR, p), ctx.g2_aff)
+    ks1, ks2 = [k255() for _ in range(128)], [k255() for _ in range(128)]
+    g1data = b"".join(g1_bytes(P) + k.to_bytes(32, "big") for P, k in zip(g1pts, ks1))
+    g2data = b"".join(g2_bytes(Q) + k.to_bytes(32, "big") for Q, k in zip(g2pts, ks2))
+    check(len(g1data) == 20480 and len(g2data) == 36864, "path r: calldata widths")
+    g1want = g1_bytes(rm.ec_mul(sum(k * l for k, l in zip(ks1, g1logs)) % r, ctx.g, 0, p))
+    g2want = g2_bytes(rm.ec2_mul(sum(k * l for k, l in zip(ks2, g2logs)) % r, ctx.g2_aff,
+                                 (0, 0), NR, p))
+    return {"g1msm k=128": (g1data, g1want), "g2msm k=128": (g2data, g2want)}
+
+
+def eip2537_calls(np, ctx):
+    """Path r's calls: [(label, op, calldata, expected bytes)]. The MSMs at
+    k = 128 take eip2537_inputs; the rest (the adds, the MSMs at k = 1, the
+    pairing check true and false, the maps and the hashes) their golden
+    entries."""
+    entries = json.loads(EVM_GOLDEN.read_text())["entries"]
+
+    def entry(op, note):
+        e = next(e for e in entries if e["op"] == op and e["note"] == note)
+        return bytes.fromhex(e["input"]), bytes.fromhex(e["output"])
+
+    msms = eip2537_inputs(np, ctx)
+    return [("g1add", "g1add", *entry("g1add", "P + Q")),
+            ("g2add", "g2add", *entry("g2add", "Q + R")),
+            ("g1msm k=128", "g1msm", *msms["g1msm k=128"]),
+            ("g1msm k=1", "g1msm", *entry("g1msm", "k = 1")),
+            ("g2msm k=128", "g2msm", *msms["g2msm k=128"]),
+            ("g2msm k=1", "g2msm", *entry("g2msm", "k = 1")),
+            ("pairingcheck k=2 true", "pairingcheck", *entry("pairingcheck", "k = 2, true")),
+            ("pairingcheck k=2 false", "pairingcheck", *entry("pairingcheck", "k = 2, false")),
+            ("map_fp_to_g1", "map_fp_to_g1", *entry("map_fp_to_g1", "seeded")),
+            ("map_fp2_to_g2", "map_fp2_to_g2", *entry("map_fp2_to_g2", "seeded")),
+            ("sha256", "sha256", *entry("sha256", "100 seeded bytes")),
+            ("ripemd160", "ripemd160", *entry("ripemd160", "100 seeded bytes"))]
+
+
+def eip2537_ops():
+    from constantine_tpu_torch.models import evm_precompiles as E
+    ops = {name: getattr(E, f"eth_evm_bls12381_{name}") for name in (
+        "g1add", "g2add", "g1msm", "g2msm", "pairingcheck", "map_fp_to_g1", "map_fp2_to_g2")}
+    ops.update(sha256=E.eth_evm_sha256, ripemd160=E.eth_evm_ripemd160)
+    return ops
+
+
+class KernelInputs:
+    """A context that records, for every kernel wrapper path r reaches, the
+    arguments of its first call with each distinct set of argument shapes
+    (and strides, and non-tensor arguments); ``check`` then holds each
+    recorded call against the kernel's plain version."""
+
+    def __init__(self, torch, ctx):
+        from constantine_tpu_torch.ops import cuda_field, field as field_mod
+        from constantine_tpu_torch.ops.pairing import get_pairing
+        self.torch, self.cf = torch, cuda_field
+        self.pec, self.aff = ctx.g1.pec, ctx.fp.affine
+        self.eng = get_pairing(ctx.name).engine
+        pec, aff, eng = self.pec, self.aff, self.eng
+        self.targets = [(cuda_field, "mont_prod"), (field_mod, "mont_prod"), (pec, "add"),
+                        (pec, "double_k"), (pec, "flush_scan"), (pec, "merge_scan"),
+                        (pec, "bucket_reduce"), (pec, "scaled_doubles"), (pec, "scalar_mul"),
+                        (aff, "chain_fwd"), (aff, "fermat_inv"), (aff, "chain_bwd_inv"),
+                        (eng, "miller_loop"), (eng, "final_exp")]
+        self.seen = {}
+        self.saved = []
+
+    def _sig(self, a):
+        if isinstance(a, self.torch.Tensor):
+            return (tuple(a.shape), a.stride())
+        if isinstance(a, (tuple, list)):
+            return tuple(self._sig(b) for b in a)
+        return a if isinstance(a, (int, bool, float, str, type(None))) else id(a)
+
+    def __enter__(self):
+        for obj, name in self.targets:
+            orig = getattr(obj, name)
+
+            def rec(*args, _orig=orig, _name=name, **kw):
+                key = (_name, self._sig(args), tuple(sorted((k, self._sig(v))
+                                                            for k, v in kw.items())))
+                self.seen.setdefault(key, (args, kw))
+                return _orig(*args, **kw)
+            self.saved.append((obj, name, orig, name in vars(obj)))
+            setattr(obj, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig, own in reversed(self.saved):
+            if own:
+                setattr(obj, name, orig)
+            else:
+                delattr(obj, name)
+        self.saved = []
+
+    def check(self, same, plain_add, plain_double_k):
+        """Every recorded call against its plain version; returns the
+        kernels' names."""
+        torch, cf, pec, aff, eng = self.torch, self.cf, self.pec, self.aff, self.eng
+
+        def shapes(a):
+            if isinstance(a, torch.Tensor):
+                return tuple(a.shape)
+            return [shapes(b) for b in a] if isinstance(a, (tuple, list)) else a
+
+        torch.cuda.synchronize()
+        by_kind, secs = {}, {}
+        for (kind, _, _), (args, kw) in self.seen.items():
+            t0 = time.perf_counter()
+            label = f"{shapes(args[1:] if kind == 'mont_prod' else args)} {kw or ''}"
+            if kind == "mont_prod":
+                got, ref = (cf.mont_prod(*args, **kw),), (cf.mont_prod_plain(*args, **kw),)
+            elif kind == "add":
+                got, ref = pec.add(*args), plain_add(*args)
+            elif kind == "double_k":
+                got, ref = pec.double_k(*args), plain_double_k(*args)
+            elif kind == "miller_loop":
+                got, ref = (eng.miller_loop(*args),), (eng._miller_loop_plain(*args[0], *args[1]),)
+            elif kind == "final_exp":
+                got, ref = (eng.final_exp(*args),), (eng._final_exp_plain(*args),)
+            else:
+                obj = aff if kind in ("chain_fwd", "fermat_inv", "chain_bwd_inv") else pec
+                got, ref = getattr(obj, kind)(*args), getattr(obj, f"_{kind}_plain")(*args)
+                if kind == "bucket_reduce":
+                    got, ref = sum(got, ()), sum(ref, ())
+                elif isinstance(got, torch.Tensor):
+                    got, ref = (got,), (ref,)
+            same(got, ref, f"{kind} at path r's shapes, {label}")
+            by_kind.setdefault(kind, []).append(label)
+            secs[kind] = secs.get(kind, 0.0) + time.perf_counter() - t0
+        name_of = {"mont_prod": "mont_mul", "add": "ec_add", "double_k": "ec_double_k",
+                   "scalar_mul": "ec_scalar_mul"}
+        for kind, labels in by_kind.items():
+            print(f"check {name_of.get(kind, kind)} against its plain version at path r's "
+                  f"{len(labels)} distinct input shapes: exact in {secs[kind]:.1f} s "
+                  f"({'; '.join(labels[:4])}{'; ...' if len(labels) > 4 else ''})", flush=True)
+        return {name_of.get(k, k) for k in by_kind}
+
+
+def eip2537_path(torch, np, ctx, start_path, end_path, recorder, t_main):
+    """Path r: the EIP-2537 precompiles (and the two hashes) through
+    models/evm_precompiles.py on the card. Builds the calldata
+    (eip2537_calls), then checks every golden entry of
+    tests/data/torch_evm_golden.json (its rejections too) byte for byte:
+    the run of an entry that is one of path r's calls is that call's first
+    timed call, the others run under `recorder`. Then profiles each call
+    once under `recorder` (its output checked; its launches are the call's
+    launches a call) and times it: one call where a call takes half a second
+    or more (the profiled call is a second run), else three (outputs
+    checked). Returns path r's seconds."""
+    from constantine_tpu_torch import build
+    t_start = time.perf_counter()
+    names = tuple(build.KERNELS)
+    ops = eip2537_ops()
+    calls = eip2537_calls(np, ctx)
+    entries = json.loads(EVM_GOLDEN.read_text())["entries"]
+    named = {(op, data): label for label, op, data, _ in calls}
+    lat = {label: [] for label, *_ in calls}
+
+    def timed(label, fn, data):
+        t0 = time.perf_counter()
+        out = fn(data)
+        torch.cuda.synchronize()
+        lat[label].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    print(f"path r: calldata built ({time.perf_counter() - t_start:.1f} s into path r)",
+          flush=True)
+    start_path()
+    for e in entries:
+        data, fn = bytes.fromhex(e["input"]), ops[e["op"]]
+        label = named.get((e["op"], data))
+        if label is not None:
+            got = timed(label, fn, data)
+        else:
+            with recorder:
+                got = fn(data)
+        check((None if got is None else got.hex()) == e["output"],
+              f"path r golden entry {e['op']} ({e['note']}): {got and got.hex()[:32]}")
+    rejected = sum(e["output"] is None for e in entries)
+    print(f"path r: the {len(entries)} golden entries equal tests/data/torch_evm_golden.json "
+          f"byte for byte, {rejected} of them rejections (None) "
+          f"({time.perf_counter() - t_start:.1f} s into path r)", flush=True)
+    per = {}
+    for label, op, data, want in calls:
+        fn = ops[op]
+        box = []
+        torch.cuda.synchronize()
+        before = build.launch_counts()
+        with recorder:
+            prof = profile_call(torch, names, f"path r {label}", lambda: box.append(fn(data)),
+                                warm=False)
+        after = build.launch_counts()
+        check(box[0] == want, f"path r {label}: the profiled call's output")
+        per[label] = {k: after[k] - before[k] for k in after}
+        ms = lat[label]
+        while len(ms) < (3 if ms and ms[0] < EIP2537_CHEAP_MS else 1):
+            check(timed(label, fn, data) == want, f"path r {label}: a timed call's output")
+        busy = "not measured" if prof is None else f"{prof[0]:.3f} ms"
+        idle = "not measured" if prof is None else f"{prof[1]:.3f}"
+        launched = {k: v for k, v in per[label].items() if v}
+        print(f"path r {label} ({len(data)} bytes): latency median {statistics.median(ms):.3f} "
+              f"ms over {len(ms)} (min {min(ms):.3f}, max {max(ms):.3f}); device busy {busy}, "
+              f"idle share {idle}; launches a call: {json.dumps(launched)}; "
+              f"{time.perf_counter() - t_start:.1f} s into path r, "
+              f"{time.perf_counter() - t_main:.1f} s into the smoke", flush=True)
+    end_path("eip2537", None, None, per)
+    return time.perf_counter() - t_start
 
 
 def main():
@@ -784,7 +1071,7 @@ def main():
     except ImportError as e:
         print(f"the port is not beside this script ({e})", file=sys.stderr)
         return 2
-    for f in (GOLDEN, PROOF_GOLDEN, PEERDAS_GOLDEN, BLS_GOLDEN):
+    for f in (GOLDEN, PROOF_GOLDEN, PEERDAS_GOLDEN, BLS_GOLDEN, EVM_GOLDEN):
         if not f.is_file():
             print(f"missing {f}", file=sys.stderr)
             return 2
@@ -868,6 +1155,45 @@ def main():
         """Jacobian point (NL,) x 3 -> host ints (x, y), or None for infinity."""
         (x, y), inf = g.to_affine(tuple(t[None] for t in P))
         return None if bool(inf[0]) else (F.decode(x)[0], F.decode(y)[0])
+
+    path_counts = {}
+    per_call = {}
+
+    def start_path():
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+
+    def end_path(name, timed_before, calls, per=None):
+        """The path's launches, and its launches a call: over `calls` calls
+        since `timed_before`, or `per` as given ({call: launches})."""
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        path_counts[name] = counts
+        per_call[name] = per or {k: (counts[k] - timed_before[k]) / calls for k in counts}
+        missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
+        check(not missing, f"{name}: kernels of the path never launched: {missing}")
+        print(f"launches on the {name} path: {json.dumps(counts)}", flush=True)
+
+    def plain_add(P, Q):
+        return planar(ec_add(F, mul_plain, std(P), std(Q)))
+
+    def plain_double_k(P, k):
+        out = std(P)
+        for _ in range(k):
+            out = ec_double(F, mul_plain, out)
+        return planar(out)
+
+    marks = [t_main]
+
+    def group_done(name):
+        """Print the seconds a group of the smoke took and the total so far."""
+        now = time.perf_counter()
+        print(f"seconds: {name} {now - marks[-1]:.1f} s ({now - t_main:.1f} s since the start)",
+              flush=True)
+        marks.append(now)
+        return now - marks[-2]
+
+    group_done("build")
 
     # ---- 1. quick checks at small shapes ------------------------------------
     for field in (F, ctx.fr):
@@ -999,6 +1325,7 @@ def main():
           "bucket_reduce, scaled_doubles, chain_fwd, fermat_inv, chain_bwd_inv (Fp, Fr), "
           "g1_decompress, miller_loop, final_exp, ntt_bfly, ntt_stages (every variant) exact "
           f"({time.perf_counter() - t_main:.1f} s since the start)", flush=True)
+    group_done("quick checks")
 
     # ---- 2. the paths ---------------------------------------------------------------
     golden = json.loads(GOLDEN.read_text())
@@ -1025,22 +1352,6 @@ def main():
     expected = {"zero": bytes([0xC0]) + bytes(47), "sparse": g1_compress_affine(acc)}
     for entry in golden["blobs"]:
         expected[f"dense{entry['seed']}"] = bytes.fromhex(entry["commitment"])
-
-    path_counts = {}
-    per_call = {}
-
-    def start_path():
-        torch.cuda.synchronize()
-        build.reset_launch_counts()
-
-    def end_path(name, timed_before, calls):
-        torch.cuda.synchronize()
-        counts = build.launch_counts()
-        path_counts[name] = counts
-        per_call[name] = {k: (counts[k] - timed_before[k]) / calls for k in counts}
-        missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
-        check(not missing, f"{name}: kernels of the path never launched: {missing}")
-        print(f"launches on the {name} path: {json.dumps(counts)}", flush=True)
 
     # a. fixed-base commit: setup + 4 checked + 5 timed commits
     start_path()
@@ -1368,17 +1679,27 @@ def main():
     print("check a four-step and a coset transform of 8192, forward and inverse: two "
           "ntt_stages launches and two allocations each, nothing else", flush=True)
 
+    group_done("paths a-m (KZG, PeerDAS, the NTT)")
     # n-q. BLS signatures: sign 64, verify 64, the 512-key sync committee, a
     # block of 128 attestations
-    bls_paths(torch, np, ctx, dev, start_path, end_path, per_call)
+    freed_s = bls_paths(torch, np, ctx, dev, start_path, end_path, per_call)
+    group_done("paths n-q (BLS signatures)")
+    # r. EIP-2537
+    r_inputs = KernelInputs(torch, ctx)
+    r_s = eip2537_path(torch, np, ctx, start_path, end_path, r_inputs, t_main)
+    group_done("path r (EIP-2537)")
 
     for name in PATH_KERNELS:
         print(f"launches per call, {name}: {json.dumps(per_call[name])}", flush=True)
-    k1_calls = {name: per_call[name]["mont_mul"] for name in PATH_KERNELS}
+    k1_calls = {name: per_call[name]["mont_mul"] for name in PATH_KERNELS if name != "eip2537"}
     print(f"K1 (mont_mul, one launch a product chain) launches per call on paths a-q: "
           f"{json.dumps(k1_calls)}, total {sum(k1_calls.values())}", flush=True)
     check(all(k1_calls[k] <= v for k, v in K1_LAUNCHES.items()),
           f"K1 launches per call {k1_calls}, above {K1_LAUNCHES}")
+    k1_r = {label: c["mont_mul"] for label, c in per_call["eip2537"].items()}
+    print(f"K1 launches per call on path r: {json.dumps(k1_r)}", flush=True)
+    check(k1_r.keys() == EIP2537_K1.keys() and all(k1_r[k] <= v for k, v in EIP2537_K1.items()),
+          f"path r's K1 launches per call {k1_r}, above {EIP2537_K1}")
     for name in ("cells and proofs", "recover"):
         got = {k: per_call[name][k] for k in FK20_LAUNCHES}
         check(got == FK20_LAUNCHES, f"{name}: launches per call {got}, not {FK20_LAUNCHES}")
@@ -2177,6 +2498,15 @@ def main():
     print(f"the per-bit K3 composition it replaces, 64 lanes x 255 bits: {k3_ms:.4f} ms a call "
           f"(CUDA events)", flush=True)
 
+    t0 = time.perf_counter()
+    r_kernels = r_inputs.check(same, plain_add, plain_double_k)
+    r_check_s = time.perf_counter() - t0
+    print(f"path r's kernels against their plain versions: {r_check_s:.1f} s", flush=True)
+    print(f"path r took {r_s + r_check_s:.1f} s (its calls {r_s:.1f} s, its kernels against "
+          f"their plain versions {r_check_s:.1f} s); the cuts to paths n-q saved {freed_s:.1f} s "
+          f"({'within' if r_s + r_check_s <= freed_s else 'above'} it)", flush=True)
+    check(r_kernels >= set(PATH_KERNELS["eip2537"]),
+          f"path r's kernels not checked at its shapes: {set(PATH_KERNELS['eip2537']) - r_kernels}")
     pair_ms = cuda_ms(torch, lambda: pr.pairing(P256, Q256), 3)
     print(f"pairing B=256 (K11 + K12): {pair_ms:.3f} ms, {256e3 / pair_ms:.3f} pairings/s",
           flush=True)
@@ -2186,6 +2516,8 @@ def main():
         src, rep = REPLACES[name]
         kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
                             launches=total[name], library_ms=None, **report[name]))
+    group_done("the kernels against their plain versions, timed")
+    print(f"seconds: the smoke in all {time.perf_counter() - t_main:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

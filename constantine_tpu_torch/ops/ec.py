@@ -178,7 +178,8 @@ class G2Group:
 
     ``add`` checks on the host whether any lane doubles and computes the
     doubling only then: a read of the card and a branch on the points, fine
-    where they are public. ``add(..., ct=True)`` always computes the
+    where they are public; ``madd`` (the flat MSM's flush) does the same.
+    ``add(..., ct=True)`` always computes the
     doubling beside the sum (its products stacked with the sum's, 5
     launches) and selects, as the reference's XLA does; ``scalar_mul``, a
     ladder over a secret scalar, uses only that form.
@@ -332,6 +333,32 @@ class G2Group:
         out = self.select(is_opp, self.infinity(out[0].shape[:-2], out[0].device), out)
         out = self.select(p_inf, Q, out)
         return self.select(q_inf, P, out)
+
+    def madd(self, P, Q_aff):
+        """Jacobian P + affine Q (madd-2007-bl), complete by the reference's
+        selects: P = infinity gives Q, H = 0 and R = 0 doubles, H = 0 alone
+        gives infinity. Five product launches; as in ``add``, a host read
+        finds whether any lane doubles."""
+        F = self.F
+        X1, Y1, Z1 = P
+        X2, Y2 = Q_aff
+        Z1Z1, Y2Z1 = self._mul([Z1, Y2], [Z1, Z1])
+        U2, S2 = self._mul([X2, Y2Z1], [Z1Z1, Z1Z1])
+        H, SY = F.sub(torch.stack([U2, S2]), torch.stack([X1, Y1])).unbind(0)
+        R, ZH = self._add2([SY, Z1], [SY, H])
+        HH, RR, ZH2 = self._mul([H, R, ZH], [H, R, ZH])
+        I = F.double(F.double(HH))
+        J, V = self._mul([H, X1], [I, I])
+        X3 = F.sub(RR, F.add(J, F.double(V)))
+        RV, YJ = self._mul([R, Y1], [F.sub(V, X3), J])
+        out = (X3, F.sub(RV, F.double(YJ)), F.sub(ZH2, F.add(Z1Z1, HH)))
+        p_inf = F.is_zero(Z1)
+        h0, r0 = F.is_zero(H), F.is_zero(R)
+        is_dbl, is_opp = ~p_inf & h0 & r0, ~p_inf & h0 & ~r0
+        if bool(is_dbl.any()):
+            out = self.select(is_dbl, self.double(P), out)
+        out = self.select(is_opp, self.infinity(out[0].shape[:-2], out[0].device), out)
+        return self.select(p_inf, self.from_affine(Q_aff), out)
 
     def scalar_mul(self, scalar_limbs, P, scalar_bits: int = None):
         """[k]P per lane: the reference's constant-time ladder. From

@@ -2,8 +2,8 @@
 for BLS12 G2.
 
 Counterpart of ``constantine_tpu/ops/glv.py``: ``GLV``, ``get_glv``,
-``GLS4``, ``get_gls4`` and ``scalar_mul_gls4_g2`` (``scalar_mul_glv`` and
-``msm_gls4_g2`` are not ported). phi(x, y) =
+``GLS4``, ``get_gls4``, ``scalar_mul_gls4_g2`` and ``msm_gls4_g2``
+(``scalar_mul_glv`` is not ported). phi(x, y) =
 (beta*x, y) equals [lambda]P, with beta and lambda cube roots of unity in Fp
 and Fr. The constructor finds them, the Gauss-reduced lattice basis and the
 Babai rounding constants with host ints, as the reference does.
@@ -409,6 +409,15 @@ def scalar_mul_gls4_g2(ctx, scalars, Q_aff):
     g2 = ctx.g2
     acc = g2.scalar_mul(kk, g2.from_affine(pts), scalar_bits=get_gls4(ctx.name).mini_bits)
     return gls4_combine(ctx, acc, Q_aff[0].shape[0])
+
+
+def msm_gls4_g2(ctx, points_aff, scalars, c: int = None):
+    """G2 MSM with the GLS-4 pre-split (applyEndomorphism m = 4): N points
+    and 255-bit scalars -> 4N points [+-]psi^i(Q) and ~67-bit scalars,
+    through the flat route."""
+    from .msm import msm
+    kk, pts = gls4_split(ctx, scalars, points_aff)
+    return msm(ctx.g2, pts, kk, c=c, scalar_bits=get_gls4(ctx.name).mini_bits, glv=False)
 
 
 @functools.lru_cache(maxsize=None)

@@ -142,3 +142,138 @@ def host_sign(sks, msgs) -> bytes:
     ctx = get_curve("BLS12_381")
     return b"".join(g2_compress_host(rm.ec2_mul(k, oracle_hash_to_g2(m), (0, 0), NR, ctx.p))
                     for k, m in zip(sks, msgs))
+
+
+# ---------------------------------------------------------------------------
+# EIP-2537 (BLS12-381 precompiles) on the host: the EIP's encodings and
+# checks, the group law, MSMs and maps over refmath, [h_eff] clearing. Bytes
+# in, bytes out, None where the EIP reverts.
+# ---------------------------------------------------------------------------
+
+
+def _fp(chunk: bytes):
+    p = get_curve("BLS12_381").p
+    if len(chunk) != 64 or any(chunk[:16]):
+        return None
+    v = int.from_bytes(chunk[16:], "big")
+    return v if v < p else None
+
+
+def fp_bytes(v: int) -> bytes:
+    return bytes(16) + v.to_bytes(48, "big")
+
+
+def g1_bytes(P) -> bytes:
+    return bytes(128) if P is None else fp_bytes(P[0]) + fp_bytes(P[1])
+
+
+def g2_bytes(Q) -> bytes:
+    if Q is None:
+        return bytes(256)
+    (x0, x1), (y0, y1) = Q
+    return fp_bytes(x0) + fp_bytes(x1) + fp_bytes(y0) + fp_bytes(y1)
+
+
+def _g1(data: bytes, subgroup: bool):
+    """128 bytes -> (ok, point or None for infinity)."""
+    ctx = get_curve("BLS12_381")
+    x, y = _fp(data[:64]), _fp(data[64:128])
+    if x is None or y is None:
+        return False, None
+    if x == 0 and y == 0:
+        return True, None
+    P = (x, y)
+    if not rm.ec_is_on_curve(P, 0, ctx.b, ctx.p):
+        return False, None
+    if subgroup and rm.ec_mul(ctx.r, P, 0, ctx.p) is not None:
+        return False, None
+    return True, P
+
+
+def _g2(data: bytes, subgroup: bool):
+    ctx = get_curve("BLS12_381")
+    vals = [_fp(data[64 * i:64 * (i + 1)]) for i in range(4)]
+    if any(v is None for v in vals):
+        return False, None
+    if not any(vals):
+        return True, None
+    Q = ((vals[0], vals[1]), (vals[2], vals[3]))
+    if not rm.ec2_is_on_curve(Q, ctx.g2_b(), NR, ctx.p):
+        return False, None
+    if subgroup and rm.ec2_mul(ctx.r, Q, (0, 0), NR, ctx.p) is not None:
+        return False, None
+    return True, Q
+
+
+def oracle_g1add(data: bytes):
+    p = get_curve("BLS12_381").p
+    if len(data) != 256:
+        return None
+    (ok1, P), (ok2, Q) = _g1(data[:128], False), _g1(data[128:], False)
+    return g1_bytes(rm.ec_add(P, Q, 0, p)) if ok1 and ok2 else None
+
+
+def oracle_g2add(data: bytes):
+    p = get_curve("BLS12_381").p
+    if len(data) != 512:
+        return None
+    (ok1, P), (ok2, Q) = _g2(data[:256], False), _g2(data[256:], False)
+    return g2_bytes(rm.ec2_add(P, Q, (0, 0), NR, p)) if ok1 and ok2 else None
+
+
+def oracle_g1msm(data: bytes):
+    p = get_curve("BLS12_381").p
+    if not data or len(data) % 160:
+        return None
+    acc = None
+    for i in range(0, len(data), 160):
+        ok, P = _g1(data[i:i + 128], True)
+        if not ok:
+            return None
+        k = int.from_bytes(data[i + 128:i + 160], "big")
+        acc = rm.ec_add(acc, None if P is None else rm.ec_mul(k, P, 0, p), 0, p)
+    return g1_bytes(acc)
+
+
+def oracle_g2msm(data: bytes):
+    p = get_curve("BLS12_381").p
+    if not data or len(data) % 288:
+        return None
+    acc = None
+    for i in range(0, len(data), 288):
+        ok, Q = _g2(data[i:i + 256], True)
+        if not ok:
+            return None
+        k = int.from_bytes(data[i + 256:i + 288], "big")
+        acc = rm.ec2_add(acc, None if Q is None else rm.ec2_mul(k, Q, (0, 0), NR, p),
+                         (0, 0), NR, p)
+    return g2_bytes(acc)
+
+
+def oracle_pairing_inputs_ok(data: bytes) -> bool:
+    """The pairing check's input checks (the product itself has no host
+    oracle here: the tests build inputs whose product they know)."""
+    if not data or len(data) % 384:
+        return False
+    return all(_g1(data[i:i + 128], True)[0] and _g2(data[i + 128:i + 384], True)[0]
+               for i in range(0, len(data), 384))
+
+
+def oracle_map_fp_to_g1(data: bytes):
+    p = get_curve("BLS12_381").p
+    u = _fp(data) if len(data) == 64 else None
+    if u is None:
+        return None
+    maps = (HC.G1_ISO_XNUM, HC.G1_ISO_XDEN, HC.G1_ISO_YNUM, HC.G1_ISO_YDEN)
+    P = map_to_curve_host(HostFp(p), u, HC.G1_SSWU_A, HC.G1_SSWU_B, HC.G1_SSWU_Z, maps)
+    return g1_bytes(rm.ec_mul(H_EFF_G1, P, 0, p))
+
+
+def oracle_map_fp2_to_g2(data: bytes):
+    p = get_curve("BLS12_381").p
+    u = (_fp(data[:64]), _fp(data[64:])) if len(data) == 128 else (None, None)
+    if None in u:
+        return None
+    maps = (HC.G2_ISO_XNUM, HC.G2_ISO_XDEN, HC.G2_ISO_YNUM, HC.G2_ISO_YDEN)
+    Q = map_to_curve_host(HostFp2(p), u, HC.G2_SSWU_A, HC.G2_SSWU_B, HC.G2_SSWU_Z, maps)
+    return g2_bytes(rm.ec2_mul(H_EFF_G2, Q, (0, 0), NR, p))
